@@ -1,0 +1,250 @@
+"""Build and bind the hand-written CUDA kernels (ops/kernels/*.cu).
+
+Each kernel source is compiled by ``nvcc -O3 -arch=sm_90a -shared
+-Xcompiler -fPIC`` into its own shared library with a plain C ABI,
+loaded with ctypes.  The sources build in parallel (one nvcc process
+each, all started together) on first use, into ``ops/_build/<key>/``,
+where the key hashes the sources, the generated constants header and
+the flags -- an edit rebuilds, an unchanged tree reuses the libraries.
+
+``fp381_consts.h`` is generated here from the port's own curve
+constants (Montgomery form, R = 2^384), so the kernels and the plain
+PyTorch versions share one source of truth for every constant.
+
+A missing ``nvcc`` is an error: there is no fallback.  Every C entry
+point returns ``cudaGetLastError()``; ``check`` raises when it is not 0.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+from ..crypto.bls import curve as C
+from ..crypto.bls import fields as F
+from ..crypto.bls.constants import (B_G1, B_G2, ISO3_X_DEN, ISO3_X_NUM,
+                                    ISO3_Y_DEN, ISO3_Y_NUM, P, SSWU_A2,
+                                    SSWU_B2, SSWU_Z2, X_ABS)
+
+KERNEL_DIR = os.path.join(os.path.dirname(__file__), "kernels")
+BUILD_ROOT = os.path.join(os.path.dirname(__file__), "_build")
+SOURCES = ("fp381", "decompress", "h2c", "scalars_group", "pairing")
+NVCC_FLAGS = ["-O3", "-arch=sm_90a", "-std=c++17", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
+# the host build: the same sources as C++ (no __CUDACC__), each kernel a
+# plain loop over its per-thread body -- checks the kernels' arithmetic on
+# a machine without a card
+HOST_FLAGS = ["-x", "c++", "-O2", "-std=c++17", "-shared", "-fPIC", "-w"]
+
+R_MONT = (1 << 384) % P
+
+
+def _words(x: int, n: int = 12) -> str:
+    return ", ".join(f"0x{(x >> (32 * j)) & 0xFFFFFFFF:08x}u"
+                     for j in range(n))
+
+
+def _fp(x: int, mont: bool = True) -> str:
+    v = (x % P) * R_MONT % P if mont else x
+    return "{{" + _words(v) + "}}"
+
+
+def _fq2(c) -> str:
+    return "{" + _fp(c[0]) + ", " + _fp(c[1]) + "}"
+
+
+def constants_header() -> str:
+    """The generated constants header (C text)."""
+    from .h2c import _Z3_POW_E
+    from .points import _PSI_X, _PSI_Y, BETA
+    from .towers import SQRT_EXP, _SQRT_C2, _SQRT_C3, _SQRT_M1
+    neg_g1 = C.to_affine(C.FQ_OPS, C.point_neg(C.FQ_OPS, C.G1_GENERATOR))
+    lines = ["// generated by teku_tpu_torch/ops/_build.py -- do not edit",
+             "#pragma once"]
+
+    def fpc(name, x, mont=True):
+        lines.append(f"DCONST fp {name} = {_fp(x, mont)};")
+
+    def fq2c(name, c):
+        lines.append(f"DCONST fq2 {name} = {_fq2(c)};")
+
+    def fq2arr(name, cs):
+        body = ", ".join(_fq2(c) for c in cs)
+        lines.append(f"DCONST fq2 {name}[{len(cs)}] = {{{body}}};")
+
+    def expc(name, e):
+        n = (e.bit_length() + 31) // 32
+        lines.append(f"DCONST uint32_t {name}[{n}] = {{{_words(e, n)}}};")
+        lines.append(f"#define {name}_BITS {e.bit_length()}")
+
+    lines.append(f"#define N0 0x{(-pow(P, -1, 1 << 32)) % (1 << 32):08x}u")
+    fpc("K_P", P, mont=False)
+    fpc("K_HALF", (P - 1) // 2, mont=False)
+    fpc("K_ONE", 1)
+    lines.append(f"DCONST fp K_R2 = {{{{{_words(R_MONT * R_MONT % P)}}}}};")
+    fpc("K_B1", B_G1)
+    fq2c("K_B2", B_G2)
+    fpc("K_BETA", BETA)
+    fq2c("K_PSI_X", _PSI_X)
+    fq2c("K_PSI_Y", _PSI_Y)
+    fq2c("K_FROB6_C1", F.FROB6_C1)
+    fq2c("K_FROB6_C2", F.FROB6_C2)
+    fq2c("K_FROB12_C1", F.FROB12_C1)
+    fq2arr("K_SQRT_ROOTS", [_SQRT_M1, _SQRT_C2, _SQRT_C3])
+    fq2c("K_SSWU_A", SSWU_A2)
+    fq2c("K_SSWU_B", SSWU_B2)
+    fq2c("K_SSWU_Z", SSWU_Z2)
+    fq2c("K_Z3E", _Z3_POW_E)
+    fq2arr("K_ISO_XN", ISO3_X_NUM)
+    fq2arr("K_ISO_XD", ISO3_X_DEN)
+    fq2arr("K_ISO_YN", ISO3_Y_NUM)
+    fq2arr("K_ISO_YD", ISO3_Y_DEN)
+    fpc("K_NEG_G1_X", neg_g1[0])
+    fpc("K_NEG_G1_Y", neg_g1[1])
+    expc("E_PM2", P - 2)
+    expc("E_SQRT1", (P + 1) // 4)
+    expc("E_SQRT2", SQRT_EXP)
+    expc("E_XABS", X_ABS)
+    expc("E_XSQ", X_ABS * X_ABS)
+    return "\n".join(lines) + "\n"
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (PATH or /usr/local/cuda/bin)")
+
+
+def _source_text(name: str) -> bytes:
+    with open(os.path.join(KERNEL_DIR, name), "rb") as fh:
+        return fh.read()
+
+
+def build_key(header: str, flags) -> str:
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(KERNEL_DIR)):
+        if name.endswith((".cu", ".cuh")):
+            h.update(name.encode())
+            h.update(_source_text(name))
+    h.update(header.encode())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
+_LOCK = threading.Lock()
+_LIBS: dict = {}
+BUILD_INFO: dict = {}       # seconds, ptxas report per source, directory
+
+
+def host_compiler() -> str:
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if not cxx:
+        raise RuntimeError("no C++ compiler for the host build of the kernels")
+    return cxx
+
+
+def build_all(host: bool = False) -> dict:
+    """Compile every kernel source (in parallel) unless already built;
+    returns {source name: library path}.  host=True builds the sources
+    as C++ for the CPU instead (tests of the kernels' arithmetic)."""
+    header = constants_header()
+    flags = HOST_FLAGS if host else NVCC_FLAGS
+    out_dir = os.path.join(BUILD_ROOT, ("host-" if host else "")
+                           + build_key(header, flags))
+    paths = {s: os.path.join(out_dir, f"lib{s}.so") for s in SOURCES}
+    if all(os.path.exists(p) for p in paths.values()):
+        BUILD_INFO.setdefault("seconds", 0.0)
+        BUILD_INFO["dir"] = out_dir
+        return paths
+    compiler = host_compiler() if host else nvcc_path()
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "fp381_consts.h"), "w") as fh:
+        fh.write(header)
+    t0 = time.perf_counter()
+    procs = {}
+    for s in SOURCES:
+        tmp = paths[s] + f".{os.getpid()}.tmp"
+        cmd = [compiler, *flags, "-I", out_dir, "-I", KERNEL_DIR, "-o", tmp,
+               os.path.join(KERNEL_DIR, f"{s}.cu")]
+        procs[s] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT), tmp)
+    reports, failed = {}, []
+    for s, (proc, tmp) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        reports[s] = log
+        with open(os.path.join(out_dir, f"{s}.log"), "w") as fh:
+            fh.write(log)
+        if proc.returncode != 0:
+            failed.append(s)
+        else:
+            os.replace(tmp, paths[s])
+    if failed:
+        msg = "\n".join(f"--- {s} ---\n{reports[s][-4000:]}" for s in failed)
+        raise RuntimeError(f"kernel build failed for {failed}:\n{msg}")
+    if not host:
+        BUILD_INFO.update(seconds=time.perf_counter() - t0, ptxas=reports,
+                          dir=out_dir)
+    return paths
+
+
+_VOIDP = ctypes.c_void_p
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+# the C entry points (every one returns a cudaError_t as int; the last
+# argument is the CUDA stream, NULL in the host build)
+SIGNATURES = {
+    "fp381_init": ([], ctypes.c_int),
+    "fp381_mul_count": ([], ctypes.c_ulonglong),      # host build only
+    "fp381_ops": ([_I, _P, _P, _P, _L, _P], ctypes.c_int),
+    "g1_validate": ([_P] * 5 + [_L, _P], ctypes.c_int),
+    "prepare": ([_P, _P, _P, _I] + [_P] * 10 + [_L, _P], ctypes.c_int),
+    "h2c": ([_P, _P, _P, _L, _P], ctypes.c_int),
+    "scalars_group": ([_P] * 6 + [_I] + [_P] * 4 + [_L, _L, _P],
+                      ctypes.c_int),
+    "miller": ([_P] * 4 + [_L, _P], ctypes.c_int),
+    "finish": ([_P, _L, _P, _L, _P, _P], ctypes.c_int),
+}
+
+
+def _load(path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
+def library(source: str, host: bool = False) -> ctypes.CDLL:
+    """The loaded library of one kernel source (builds all on first use)."""
+    with _LOCK:
+        lib = _LIBS.get((source, host))
+        if lib is None:
+            for s, path in build_all(host).items():
+                if (s, host) not in _LIBS:
+                    loaded = _load(path)
+                    check(loaded.fp381_init(), f"{s} init")
+                    _LIBS[(s, host)] = loaded
+            lib = _LIBS[(source, host)]
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {what} failed: cudaError {err}")
+
+
+def stream_ptr(t):
+    """The current CUDA stream for tensor t's device (None on the CPU)."""
+    import torch
+    if t.device.type != "cuda":
+        return None
+    return _VOIDP(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr(t):
+    return _VOIDP(t.data_ptr())

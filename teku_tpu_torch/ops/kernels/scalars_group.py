@@ -1,0 +1,61 @@
+"""scalars_group.cu: the random-multiplier ladders fused with the
+per-message fold (replaces teku_tpu/ops/verify.py:stage_scalars and
+stage_group)."""
+
+import torch
+
+from .. import _build
+from .. import points as PT
+from .. import verify as V
+from . import LAUNCHES, INT, LONG, check_tensor, lib, on_card, ptr
+from .decompress import g1_from_words, g1_to_words, g2_from_words, g2_to_words
+
+
+def scalars_group(pk_jac, sig_jac, r, miller_mask, group_idx, group_present):
+    """pk_jac (n, 3, 12), sig_jac (n, 3, 2, 12) words; r (n,) int64 bit
+    patterns of the 64-bit multipliers; miller_mask (n,); group_idx /
+    group_present (rows, g).  Returns (agg (rows, 2, 12) affine words,
+    u_mask (rows,), wsig (n, 3, 2, 12) Jacobian words)."""
+    n = pk_jac.shape[0]
+    rows, g = group_idx.shape
+    dev = pk_jac.device
+    for name, t, dt, shape in (
+            ("pk_jac", pk_jac, torch.int32, (n, 3, 12)),
+            ("sig_jac", sig_jac, torch.int32, (n, 3, 2, 12)),
+            ("r", r, torch.int64, (n,)),
+            ("miller_mask", miller_mask, torch.bool, (n,)),
+            ("group_idx", group_idx, torch.int32, (rows, g)),
+            ("group_present", group_present, torch.bool, (rows, g))):
+        check_tensor(t, name, dt, shape, dev)
+    if not on_card(pk_jac):
+        return scalars_group_plain(pk_jac, sig_jac, r, miller_mask,
+                                   group_idx, group_present)
+    LAUNCHES["scalars_group"] += 1
+    return _run_scalars_group(lib("scalars_group"), pk_jac, sig_jac, r,
+                              miller_mask, group_idx, group_present)
+
+
+def _run_scalars_group(library, pk_jac, sig_jac, r, miller_mask, group_idx,
+                       group_present):
+    n = pk_jac.shape[0]
+    rows, g = group_idx.shape
+    dev = pk_jac.device
+    scratch = torch.empty(n * 36, dtype=torch.int32, device=dev)
+    agg = torch.empty((rows, 2, 12), dtype=torch.int32, device=dev)
+    u_mask = torch.empty(rows, dtype=torch.bool, device=dev)
+    wsig = torch.empty((n, 3, 2, 12), dtype=torch.int32, device=dev)
+    _build.check(library.scalars_group(
+        ptr(pk_jac), ptr(sig_jac), ptr(r), ptr(miller_mask), ptr(group_idx),
+        ptr(group_present), INT(g), ptr(scratch), ptr(agg), ptr(u_mask),
+        ptr(wsig), LONG(n), LONG(rows), _build.stream_ptr(pk_jac)),
+        "scalars_group")
+    return agg, u_mask, wsig
+
+
+def scalars_group_plain(pk_jac, sig_jac, r, miller_mask, group_idx,
+                        group_present):
+    bits = PT.scalar_from_uint64(r)
+    pk_r, wsig = V.stage_scalars(g1_from_words(pk_jac),
+                                 g2_from_words(sig_jac), bits)
+    agg, u_mask = V.stage_group(pk_r, miller_mask, group_idx, group_present)
+    return g1_to_words(agg), u_mask, g2_to_words(wsig)

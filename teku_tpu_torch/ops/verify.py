@@ -1,0 +1,140 @@
+"""Staged batched BLS verification in plain PyTorch, mirroring teku_tpu/ops/verify.py.
+
+  ok  <=>  prod_u e(sum_{i in u} [r_i]pk_i, H(m_u)) * e(-g1, sum_i [r_i]sig_i) == 1
+
+The stage functions keep the reference's argument contracts (15 x 26
+Montgomery limbs, the same masks), so each can be held against its
+JAX counterpart: prepare -> h2c (unique width) -> scalars -> group ->
+miller -> finish.  ``verify_staged_grouped`` chains them.  The kernels
+in ops/kernels/ compute the same stages on canonical words; their
+plain versions call these functions.
+"""
+
+import torch
+
+from ..crypto.bls import curve as C
+from . import h2c
+from . import limbs as fp
+from . import pairing as PR
+from . import points as PT
+from . import towers as T
+
+_NEG_G1 = C.to_affine(C.FQ_OPS, C.point_neg(C.FQ_OPS, C.G1_GENERATOR))
+_NEG_G1_X = fp.int_to_mont(_NEG_G1[0])
+_NEG_G1_Y = fp.int_to_mont(_NEG_G1[1])
+
+point_batch_sum = PT.point_batch_sum
+
+
+def to_affine_g1(p):
+    """Batched Jacobian -> affine G1 (one batched inversion)."""
+    zinv = fp.inv_many(p[2])
+    zinv2 = fp.mont_sqr(zinv)
+    t = fp.mont_mul(T._stk(p[0], fp.mont_mul(zinv2, zinv)),
+                    T._stk(zinv2, p[1]))
+    return (t[..., 0, :], t[..., 1, :])
+
+
+def _aggregate_lane_pks(pk_xs, pk_ys, pk_present):
+    """(N, K, L) padded affine keys -> one Jacobian aggregate per lane."""
+    one = fp.bcast(fp.ONE_MONT, pk_xs)
+    G1 = PT.G1_KIT
+    if pk_xs.shape[-2] == 1:
+        pk_jac = (pk_xs[..., 0, :], pk_ys[..., 0, :], one[..., 0, :])
+        inf = PT.infinity_like(G1, pk_jac[0])
+        pk_jac = PT._select_point(G1, ~pk_present[..., 0], inf, pk_jac)
+    else:
+        jac = (pk_xs, pk_ys, one)
+        inf = PT.infinity_like(G1, pk_xs)
+        jac = PT._select_point(G1, pk_present, jac, inf)
+        jac = fp.tree_map(lambda x: torch.movedim(x, -2, 0), jac)
+        pk_jac = point_batch_sum(G1, jac)
+    return pk_jac, PT.is_infinity(G1, pk_jac)
+
+
+def stage_prepare(pk_xs, pk_ys, pk_present, sig_x_plain, sig_large,
+                  sig_inf, lane_valid):
+    """Key aggregation + signature decompression / subgroup checks."""
+    pk_jac, pk_inf = _aggregate_lane_pks(pk_xs, pk_ys, pk_present)
+    dec_ok, sig_pt = PT.g2_recover_y(sig_x_plain, sig_large)
+    in_sub = PT.g2_in_subgroup(sig_pt)
+    sig_ok = (dec_ok & in_sub) | sig_inf
+    use_inf = sig_inf | ~sig_ok | ~lane_valid
+    sig_jac = PT._select_point(
+        PT.G2_KIT, use_inf, PT.infinity_like(PT.G2_KIT, sig_pt[0]), sig_pt)
+    return pk_jac, sig_jac, sig_ok & ~pk_inf, lane_valid & ~pk_inf
+
+
+def stage_h2c(u0, u1):
+    """Hash-to-G2 + cofactor clearing + affine, at unique width."""
+    return h2c.to_affine_g2(h2c.hash_to_g2_device(u0, u1))
+
+
+def stage_scalars(pk_jac, sig_jac, r_bits):
+    """64-bit random-multiplier ladders on G1 and G2 (Jacobian out)."""
+    return (PT.scalar_mul_bits(PT.G1_KIT, r_bits, pk_jac),
+            PT.scalar_mul_bits(PT.G2_KIT, r_bits, sig_jac))
+
+
+def stage_group(pk_r_jac, miller_mask, group_idx, group_present):
+    """Fold each message row's lanes into one pairing input (bilinearity):
+    ((x, y) affine (U, L), u_mask (U,))."""
+    G1 = PT.G1_KIT
+    inf = PT.infinity_like(G1, pk_r_jac[0])
+    masked = PT._select_point(G1, miller_mask, pk_r_jac, inf)
+    gidx = group_idx.to(torch.int64)
+    grouped = fp.tree_map(lambda x: x[gidx], masked)
+    inf_g = PT.infinity_like(G1, grouped[0])
+    grouped = PT._select_point(G1, group_present, grouped, inf_g)
+    if group_idx.shape[1] == 1:
+        agg = fp.tree_map(lambda x: x[:, 0], grouped)
+    else:
+        agg = point_batch_sum(
+            G1, fp.tree_map(lambda x: torch.movedim(x, 1, 0), grouped))
+    u_mask = ~PT.is_infinity(G1, agg)
+    return to_affine_g1(agg), u_mask
+
+
+def stage_miller(pk_r_aff, hm_aff, mask):
+    return PR.miller_loop(pk_r_aff, hm_aff, mask=mask)
+
+
+def _finish(ml_prod, s_sum):
+    """One Miller loop on (-g1, sum of weighted signatures) and the
+    shared final exponentiation."""
+    s_inf = PT.is_infinity(PT.G2_KIT, s_sum)
+    s_aff = h2c.to_affine_g2(fp.tree_map(lambda x: x[None], s_sum))
+    like = s_aff[0][0]
+    neg_g1 = (fp.bcast(_NEG_G1_X, like), fp.bcast(_NEG_G1_Y, like))
+    ml_s = PR.miller_loop(neg_g1, s_aff, mask=~s_inf[None])
+    f = T.fq12_mul(ml_prod, fp.tree_map(lambda x: x[0], ml_s))
+    return PR.pairing_check(f)
+
+
+def stage_finish(ml, wsig):
+    """Cross-row product + G2 sum + final exponentiation + verdict."""
+    return _finish(PR.batch_product(ml),
+                   point_batch_sum(PT.G2_KIT, wsig))
+
+
+def verify_staged_grouped(pk_xs, pk_ys, pk_present, hm_uniq, group_idx,
+                          group_present, sig_x_plain, sig_large, sig_inf,
+                          r_bits, lane_valid):
+    """The staged grouped pipeline downstream of h2c: (ok, lane_ok)."""
+    pk_jac, sig_jac, lane_ok, miller_mask = stage_prepare(
+        pk_xs, pk_ys, pk_present, sig_x_plain, sig_large, sig_inf,
+        lane_valid)
+    pk_r_jac, wsig = stage_scalars(pk_jac, sig_jac, r_bits)
+    agg_aff, u_mask = stage_group(pk_r_jac, miller_mask, group_idx,
+                                  group_present)
+    ml = stage_miller(agg_aff, hm_uniq, u_mask)
+    return stage_finish(ml, wsig), lane_ok
+
+
+def verify_staged(pk_xs, pk_ys, pk_present, u0, u1, group_idx,
+                  group_present, sig_x_plain, sig_large, sig_inf, r_bits,
+                  lane_valid):
+    """Unique-message draws in, (ok, lane_ok) out."""
+    return verify_staged_grouped(pk_xs, pk_ys, pk_present, stage_h2c(u0, u1),
+                                 group_idx, group_present, sig_x_plain,
+                                 sig_large, sig_inf, r_bits, lane_valid)
