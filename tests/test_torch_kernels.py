@@ -6,18 +6,19 @@ chains kept in a variable), and every kernel must give its plain
 PyTorch version's words exactly on a seeded 2-lane batch.  The wrappers
 take the plain version for CPU tensors and check dtype, shape and
 contiguity.  With a card (marker ``gpu``): the CUDA build against the
-plain version on the card.
+plain version on the card.  The fp381 entry points are tested in
+test_torch_fp381.py, the provider on the host build in
+test_torch_provider.py.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from teku_tpu_torch.crypto.bls.constants import P, R
+from teku_tpu_torch.crypto.bls.constants import R
 from teku_tpu_torch.ops import kernels as K
 from teku_tpu_torch.ops import limbs as fp
 from teku_tpu_torch.ops.kernels import decompress as KD
-from teku_tpu_torch.ops.kernels import fp381 as KF
 from teku_tpu_torch.ops.kernels import h2c as KH
 from teku_tpu_torch.ops.kernels import pairing as KP
 from teku_tpu_torch.ops.kernels import scalars_group as KS
@@ -35,12 +36,6 @@ RUN = {"g1_validate": (KD._run_g1_validate, "decompress"),
 PLAIN = {"g1_validate": KD.g1_validate_plain, "prepare": KD.prepare_plain,
          "h2c": KH.h2c_plain, "scalars_group": KS.scalars_group_plain,
          "miller": KP.miller_plain, "finish": KP.finish_plain}
-
-
-def rand_words(n, width=1):
-    vals = [int.from_bytes(RNG.bytes(48), "big") % P for _ in range(n * width)]
-    return torch.from_numpy(np.stack([fp.int_to_words(v) for v in vals])
-                            ).reshape(n, 12 * width)
 
 
 def stage_inputs():
@@ -91,15 +86,6 @@ def assert_equal_outputs(a, b):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("op", sorted(KF.OPS))
-def test_fp381_entry_points_host_build_match_plain(op):
-    _, width, nargs = KF.OPS[op]
-    a = rand_words(3, width)
-    b = rand_words(3, width) if nargs == 2 else None
-    out = KF._run(K.lib("fp381", host=True), op, a, b)
-    assert torch.equal(out, KF.fp381_ops_plain(op, a, b))
-
-
 @pytest.mark.parametrize("name", sorted(RUN))
 def test_kernel_host_build_matches_plain(inputs, name):
     fn, source = RUN[name]
@@ -126,76 +112,6 @@ def test_wrappers_take_plain_version_on_cpu_and_check_inputs(inputs):
         KP.miller(*inputs["miller"][:2], inputs["miller"][2][:1])
 
 
-def test_host_mul_count_reports_montgomery_products():
-    lib = K.lib("fp381", host=True)
-    before = lib.fp381_mul_count()
-    KF._run(lib, "fq2_mul", rand_words(5, 2), rand_words(5, 2))
-    # per element: two loads (to Montgomery) x 2 components, 3 products,
-    # two stores (from Montgomery) x 1 component each
-    assert lib.fp381_mul_count() - before == 5 * (4 + 3 + 2)
-
-
-def test_provider_api_on_the_host_build(monkeypatch):
-    """The SPI entry points through the kernel wrappers, with the host
-    C++ build standing in for the CUDA one (each wrapper counts its
-    launch), against the oracle's verdicts."""
-    real_lib = K.lib
-    for mod in (KD, KH, KP, KS):
-        monkeypatch.setattr(mod, "on_card", lambda t: True)
-        monkeypatch.setattr(mod, "lib",
-                            lambda src, host=False: real_lib(src, host=True))
-    pure = PureBls12381()
-    sks = [int.from_bytes(RNG.bytes(32), "big") % (R - 1) + 1
-           for _ in range(3)]
-    pks = [pure.secret_key_to_public_key(s) for s in sks]
-    sigs = [pure.sign(s, b"api-%d" % i) for i, s in enumerate(sks)]
-    prov = TorchBls12381(device="cpu")
-    K.reset_launches()
-    assert prov.verify(pks[0], b"api-0", sigs[0]) is True
-    assert prov.verify(pks[0], b"api-1", sigs[0]) is False
-    agg = pure.aggregate_signatures([pure.sign(s, b"all") for s in sks])
-    assert prov.fast_aggregate_verify(pks, b"all", agg) is True
-    assert prov.fast_aggregate_verify(pks[:2], b"all", agg) is False
-    msgs = [b"api-0", b"api-1", b"api-2"]
-    agg_multi = pure.aggregate_signatures(sigs)
-    assert prov.aggregate_verify(pks, msgs, agg_multi) is True
-    assert prov.aggregate_verify(pks, msgs[::-1], agg_multi) is False
-    triples = [([pks[i]], msgs[i], sigs[i]) for i in range(3)]
-    assert prov.batch_verify(triples) is pure.batch_verify(triples) is True
-    assert prov.begin_batch_verify(triples[:2] + [triples[0]]).result() is True
-    assert all(K.LAUNCHES[k] > 0 for k in (
-        "g1_validate", "prepare", "h2c", "scalars_group", "miller", "finish"))
-
-
-def test_group_split_and_h2c_arena_on_the_host_build(monkeypatch):
-    """Rows split at the group cap, the H(m) arena's hits, evictions and
-    over-capacity bypass, through the wrappers on the host C++ build."""
-    real_lib = K.lib
-    for mod in (KD, KH, KP, KS):
-        monkeypatch.setattr(mod, "on_card", lambda t: True)
-        monkeypatch.setattr(mod, "lib",
-                            lambda src, host=False: real_lib(src, host=True))
-    pure = PureBls12381()
-    sks = [int.from_bytes(RNG.bytes(32), "big") % (R - 1) + 1
-           for _ in range(5)]
-    pks = [pure.secret_key_to_public_key(s) for s in sks]
-
-    def batch(msgs):
-        return [([pks[i]], m, pure.sign(sks[i], m)) for i, m in enumerate(msgs)]
-    prov = TorchBls12381(device="cpu", group_cap=2, h2c_cache_capacity=4)
-    split = batch([b"c"] * 5)                  # rows of 2, 2, 1
-    assert prov.batch_verify(split) is True
-    swapped = split[:4] + [(split[4][0], b"c", split[0][2])]
-    assert prov.batch_verify(swapped) is False
-    assert prov.h2c_dispatch_count == 1        # second batch: arena hits
-    for msgs, dispatches in (([b"d", b"e", b"c"], 2),   # d, e miss
-                             ([b"x", b"y", b"z"], 3),   # evicts c, d
-                             ([b"c", b"e"], 4),         # c missed again
-                             ([b"m%d" % i for i in range(5)], 5)):  # bypass
-        assert prov.batch_verify(batch(msgs)) is True
-        assert prov.h2c_dispatch_count == dispatches
-
-
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_on_card(inputs):
     if not torch.cuda.is_available():
@@ -205,25 +121,3 @@ def test_cuda_kernels_match_plain_on_card(inputs):
     for name, (fn, source) in RUN.items():
         args = tuple(a.to(dev) for a in inputs[name])
         assert_equal_outputs(fn(K.lib(source), *args), PLAIN[name](*args))
-
-
-def test_port_imports_neither_jax_nor_the_reference():
-    """teku_tpu_torch and chip_smoke.py import torch, numpy and the
-    standard library; no module of jax or teku_tpu."""
-    import ast
-    import pathlib
-    root = pathlib.Path(__file__).resolve().parent.parent
-    files = list((root / "teku_tpu_torch").rglob("*.py")) + [
-        root / "chip_smoke.py"]
-    bad = []
-    for path in files:
-        for node in ast.walk(ast.parse(path.read_text())):
-            if isinstance(node, ast.Import):
-                mods = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                mods = [node.module or ""]
-            else:
-                continue
-            bad += [f"{path.name}: {m}" for m in mods
-                    if m.split(".")[0] in ("jax", "jaxlib", "teku_tpu")]
-    assert len(files) > 20 and not bad, bad
