@@ -9,14 +9,19 @@ Phases, each fatal on failure (exit code 1, no result line):
               nvcc (in parallel) and print the build time and the ptxas
               register / stack / spill report.
 2. parity  -- hold each kernel against its plain PyTorch version on the
-              card, on a seeded 8-lane batch (exact: integer arithmetic).
+              card, on a seeded 8-lane batch through both scalars paths
+              (the ladder and the GLV + Pippenger MSM), and scalars_msm
+              at the 256-lane batch's shapes (exact: integer arithmetic).
 3. verify  -- drive TorchBls12381(device="cuda") through batch_verify:
-              a 256-lane batch of single-key attestations over 4 messages
-              (rows of 32) and a 64-lane batch of 128-key aggregates over
-              64 messages; each must verify, and a copy with one swapped
+              workload A, a 256-lane batch of single-key attestations
+              over 4 messages (rows of 32), under the msm path rule's
+              `auto` (must resolve to pippenger) and forced onto the
+              ladder; workload B, a 64-lane batch of 128-key aggregates
+              over 64 messages, under `auto` (must resolve to the
+              ladder).  Each must verify, and a copy with one swapped
               signature must not.  Launch counters are zeroed just before
               and read just after; every kernel must have launched.
-4. timing  -- each kernel at the 256-lane batch's shapes (CUDA events),
+4. timing  -- each kernel at workload A's shapes (CUDA events),
               its plain version on the same inputs, and its bound: the
               int32 multiply-adds it executes on these inputs (counted by
               the host C++ build of the same source: 576 per Montgomery
@@ -48,6 +53,7 @@ KERNELS = {
     "prepare": ("decompress", "teku_tpu/ops/verify.py:169"),
     "h2c": ("h2c", "teku_tpu/ops/verify.py:182"),
     "scalars_group": ("scalars_group", "teku_tpu/ops/verify.py:200"),
+    "scalars_msm": ("msm", "teku_tpu/ops/verify.py:246 + ops/msm.py:333-493"),
     "miller": ("pairing", "teku_tpu/ops/verify.py:266"),
     "finish": ("pairing", "teku_tpu/ops/verify.py:272"),
 }
@@ -167,10 +173,14 @@ def run_stages(plan, dev, runner):
         "sig_inf", "lane_valid"))
     out["prepare"] = runner("prepare", *ins["prepare"])
     pk_jac, sig_jac, lane_ok, mmask = out["prepare"]
-    ins["scalars_group"] = (pk_jac, sig_jac, d(plan["r"]), mmask,
-                            d(plan["group_idx"]), d(plan["group_present"]))
-    out["scalars_group"] = runner("scalars_group", *ins["scalars_group"])
-    agg, u_mask, wsig = out["scalars_group"]
+    if plan["msm_path"] == "pippenger":
+        scalars, mult = "scalars_msm", d(plan["glv_digits"])
+    else:
+        scalars, mult = "scalars_group", d(plan["r"])
+    ins[scalars] = (pk_jac, sig_jac, mult, mmask, d(plan["group_idx"]),
+                    d(plan["group_present"]))
+    out[scalars] = runner(scalars, *ins[scalars])
+    agg, u_mask, wsig = out[scalars]
     ins["miller"] = (agg, hm, u_mask)
     out["miller"] = runner("miller", *ins["miller"])
     ins["finish"] = (out["miller"], wsig)
@@ -184,10 +194,12 @@ def kernel_runner(host=False):
     from teku_tpu_torch.ops.kernels import decompress as KD
     from teku_tpu_torch.ops.kernels import h2c as KH
     from teku_tpu_torch.ops.kernels import lib
+    from teku_tpu_torch.ops.kernels import msm as KM
     from teku_tpu_torch.ops.kernels import pairing as KP
     from teku_tpu_torch.ops.kernels import scalars_group as KS
     table = {"g1_validate": KD._run_g1_validate, "prepare": KD._run_prepare,
              "h2c": KH._run_h2c, "scalars_group": KS._run_scalars_group,
+             "scalars_msm": KM._run_scalars_msm,
              "miller": KP._run_miller, "finish": KP._run_finish}
 
     def run(name, *args):
@@ -198,11 +210,13 @@ def kernel_runner(host=False):
 def plain_runner():
     from teku_tpu_torch.ops.kernels import decompress as KD
     from teku_tpu_torch.ops.kernels import h2c as KH
+    from teku_tpu_torch.ops.kernels import msm as KM
     from teku_tpu_torch.ops.kernels import pairing as KP
     from teku_tpu_torch.ops.kernels import scalars_group as KS
     table = {"g1_validate": KD.g1_validate_plain,
              "prepare": KD.prepare_plain, "h2c": KH.h2c_plain,
              "scalars_group": KS.scalars_group_plain,
+             "scalars_msm": KM.scalars_msm_plain,
              "miller": KP.miller_plain, "finish": KP.finish_plain}
     return lambda name, *args: table[name](*args)
 
@@ -216,6 +230,7 @@ def phase_parity(signer, dev):
     import torch
     from teku_tpu_torch.ops import limbs as fp
     from teku_tpu_torch.ops.kernels import fp381 as KF
+    from teku_tpu_torch.ops import msm
     from teku_tpu_torch.ops.kernels import lib
     from teku_tpu_torch.ops.provider import TorchBls12381, parse_g1_wire
     from teku_tpu_torch.crypto.bls.constants import P
@@ -256,8 +271,9 @@ def phase_parity(signer, dev):
     p = plain_runner()("g1_validate", xw, lg)
     report("g1_validate", [max_err(a, b) for a, b in zip(k, p)])
 
-    # the verify chain on an 8-lane batch: 2-key lanes, 3 messages, one
-    # infinity signature lane, one swapped signature
+    # the verify chain on an 8-lane batch (2-key lanes, 3 messages, one
+    # infinity signature lane, one swapped signature) through each
+    # scalars path; on pippenger, finish takes a 1-lane wsig
     msgs = [b"p0", b"p0", b"p1", b"p1", b"p1", b"p2", b"p2", b"p0"]
     triples = [signer.triple([2 * i % 32, (2 * i + 1) % 32], m)
                for i, m in enumerate(msgs)]
@@ -265,51 +281,89 @@ def phase_parity(signer, dev):
     triples = swap_sig(triples, 5, 6)
     prov = TorchBls12381(device=dev)
     semis = [prov.prepare_batch_verify(t) for t in triples]
-    plan = prov.plan(semis, randomize=True)
-    ins, pout = run_stages(plan, dev, plain_runner())
     kr = kernel_runner()
-    for name in ("h2c", "prepare", "scalars_group", "miller", "finish"):
-        kout = as_tuple(kr(name, *ins[name]))
-        report(name, [max_err(a, b) for a, b in zip(kout, as_tuple(pout[name]))])
+    for path in ("ladder", "pippenger"):
+        with msm.force(path):
+            plan = prov.plan(semis, randomize=True)
+        ins, pout = run_stages(plan, dev, plain_runner())
+        for name in pout:
+            kout = as_tuple(kr(name, *ins[name]))
+            report(f"{name}/{path}", [max_err(a, b) for a, b in
+                                      zip(kout, as_tuple(pout[name]))])
+    # scalars_msm at workload A's shapes: 256 lanes in 8 rows of 32,
+    # 512 G2 columns in 16 segments
+    semis = [prov.prepare_batch_verify(t) for t in workload_a(signer)]
+    plan = prov.plan(semis, randomize=True)
+    if plan["msm_path"] != "pippenger":
+        fail(f"workload A resolved to {plan['msm_path']} under auto")
+    t = {k: torch.from_numpy(v).to(dev) for k, v in plan.items()
+         if isinstance(v, np.ndarray)}
+    pk_jac, sig_jac, _, mmask = kr("prepare", *(t[k] for k in (
+        "pk_x", "pk_y", "pk_present", "sig_x0", "sig_x1", "sig_large",
+        "sig_inf", "lane_valid")))
+    args = (pk_jac, sig_jac, t["glv_digits"], mmask, t["group_idx"],
+            t["group_present"])
+    report("scalars_msm/A", [max_err(a, b) for a, b in zip(
+        kr("scalars_msm", *args), plain_runner()("scalars_msm", *args))])
     torch.cuda.synchronize()
     if not ok_all:
         fail("a kernel disagrees with its plain version")
 
 
+def workload_a(signer):
+    """256 single-key attestations over 4 messages (rows of 32)."""
+    msgs = [b"attestation-%d" % (i % 4) for i in range(256)]
+    return [signer.triple([i], m) for i, m in enumerate(msgs)]
+
+
 def phase_verify(signer, dev, recorder):
     import torch
     from teku_tpu_torch.ops import kernels as K
+    from teku_tpu_torch.ops import msm
     from teku_tpu_torch.ops.provider import TorchBls12381
-    msgs_a = [b"attestation-%d" % (i % 4) for i in range(256)]
-    batch_a = [signer.triple([i], m) for i, m in enumerate(msgs_a)]
+    batch_a = workload_a(signer)
     batch_b = [signer.triple([(2 * lane + j) % len(signer.sks)
                               for j in range(128)], b"aggregate-%d" % lane)
                for lane in range(64)]
-    cases = [("256 lanes x 1 key, 4 messages", batch_a, True),
-             ("256 lanes, one swapped signature", swap_sig(batch_a, 5, 6),
-              False),
-             ("64 lanes x 128 keys, 64 messages", batch_b, True),
-             ("64 lanes, one swapped signature", swap_sig(batch_b, 3, 4),
-              False)]
+    # (label, triples, expected verdict, configured path, resolved path)
+    cases = [("A: 256 lanes x 1 key, 4 messages, auto", batch_a, True,
+              "auto", "pippenger"),
+             ("A, one swapped signature, auto", swap_sig(batch_a, 5, 6),
+              False, "auto", "pippenger"),
+             ("A under the ladder", batch_a, True, "ladder", "ladder"),
+             ("A, one swapped signature, ladder", swap_sig(batch_a, 7, 8),
+              False, "ladder", "ladder"),
+             ("B: 64 lanes x 128 keys, 64 messages, auto", batch_b, True,
+              "auto", "ladder"),
+             ("B, one swapped signature, auto", swap_sig(batch_b, 3, 4),
+              False, "auto", "ladder")]
     prov = TorchBls12381(device=dev)
     torch.cuda.synchronize()
     K.reset_launches()
     recorder.on = True
     results = []
-    for label, triples, expect in cases:
-        t0 = time.perf_counter()
-        got = prov.batch_verify(triples)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        results.append((label, got, expect, dt))
-        recorder.on = False
+    for label, triples, expect, path, _ in cases:
+        before = dict(prov.msm_dispatches)
+        with msm.force(path):
+            t0 = time.perf_counter()
+            got = prov.batch_verify(triples)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        ran = [p for p, c in prov.msm_dispatches.items() if c != before[p]]
+        results.append((label, got, expect, dt, ran))
+    recorder.on = False
     launches = {name: K.LAUNCHES[name] for name in KERNELS}
-    for label, got, expect, dt in results:
-        log(f"[verify] {label}: {got} (expected {expect}) in {dt * 1e3:.1f} ms")
-    log(f"[verify] launches: {json.dumps(launches)}")
-    for label, got, expect, _ in results:
+    for label, got, expect, dt, ran in results:
+        log(f"[verify] {label}: {got} (expected {expect}) on {ran} in "
+            f"{dt * 1e3:.1f} ms")
+    log(f"[verify] launches: {json.dumps(launches)}; msm dispatches: "
+        f"{json.dumps(prov.msm_dispatches)}")
+    for (label, got, expect, _, ran), case in zip(results, cases):
         if got is not expect:
             fail(f"batch '{label}' verified {got}, expected {expect}")
+        if ran != [case[4]]:
+            fail(f"batch '{label}' ran the scalars path {ran}, expected "
+                 f"{case[4]}")
     for name in KERNELS:
         if launches.get(name, 0) < 1:
             fail(f"kernel {name} was not launched on the main path")
@@ -318,18 +372,20 @@ def phase_verify(signer, dev, recorder):
 
 class Recorder:
     """Keeps the first call's arguments of each kernel wrapper while on
-    (wraps the module attributes the provider calls)."""
+    (wraps the module attributes the provider calls): workload A's
+    shapes, scalars_group's from A under the ladder."""
 
     def __init__(self):
         from teku_tpu_torch.ops.kernels import decompress as KD
         from teku_tpu_torch.ops.kernels import h2c as KH
+        from teku_tpu_torch.ops.kernels import msm as KM
         from teku_tpu_torch.ops.kernels import pairing as KP
         from teku_tpu_torch.ops.kernels import scalars_group as KS
         self.on = False
         self.args = {}
         for mod, name in ((KD, "g1_validate"), (KD, "prepare"), (KH, "h2c"),
-                          (KS, "scalars_group"), (KP, "miller"),
-                          (KP, "finish")):
+                          (KS, "scalars_group"), (KM, "scalars_msm"),
+                          (KP, "miller"), (KP, "finish")):
             self._wrap(mod, name)
 
     def _wrap(self, mod, name):

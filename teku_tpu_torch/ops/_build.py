@@ -31,7 +31,7 @@ from ..crypto.bls.constants import (B_G1, B_G2, ISO3_X_DEN, ISO3_X_NUM,
 
 KERNEL_DIR = os.path.join(os.path.dirname(__file__), "kernels")
 BUILD_ROOT = os.path.join(os.path.dirname(__file__), "_build")
-SOURCES = ("fp381", "decompress", "h2c", "scalars_group", "pairing")
+SOURCES = ("fp381", "decompress", "h2c", "scalars_group", "msm", "pairing")
 NVCC_FLAGS = ["-O3", "-arch=sm_90a", "-std=c++17", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 # the host build: the same sources as C++ (no __CUDACC__), each kernel a
@@ -205,6 +205,8 @@ SIGNATURES = {
     "h2c": ([_P, _P, _P, _L, _P], ctypes.c_int),
     "scalars_group": ([_P] * 6 + [_I] + [_P] * 4 + [_L, _L, _P],
                       ctypes.c_int),
+    "scalars_msm": ([_P] * 6 + [_I] + [_P] * 4 + [_L, _L, _L, _P],
+                    ctypes.c_int),
     "miller": ([_P] * 4 + [_L, _P], ctypes.c_int),
     "finish": ([_P, _L, _P, _L, _P, _P], ctypes.c_int),
 }

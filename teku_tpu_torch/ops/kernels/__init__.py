@@ -29,7 +29,7 @@ from .. import _build
 
 LAUNCHES = {name: 0 for name in (
     "fp381_ops", "g1_validate", "prepare", "h2c", "scalars_group",
-    "miller", "finish")}
+    "scalars_msm", "miller", "finish")}
 
 
 def reset_launches() -> None:

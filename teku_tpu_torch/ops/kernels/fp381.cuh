@@ -1,6 +1,6 @@
 // fp381.cuh -- BLS12-381 field, tower and curve arithmetic for Hopper (sm_90a).
 //
-// The device library the four kernel sources share.  It replaces the
+// The device library the kernel sources share.  It replaces the
 // fp381 limb engine the TPU programs are built from (teku_tpu/ops/limbs.py,
 // towers.py, points.py, pairing.py): there, 15 signed lazy 26-bit limbs in
 // int64 lanes with R = 2^390; here, 12 x 32-bit words, Montgomery form with

@@ -6,10 +6,13 @@ parse (flag bits, x < P), SHA-256 message expansion, the pubkey LRU with
 one batched validation dispatch for its misses, unique-message dedup,
 group rows (cap 32), pow-2 buckets, the device H(m) arena, and 64-bit
 random multipliers from ``secrets``.  Device work: the kernel chain
-prepare -> h2c (unique width) -> scalars+group -> miller -> finish
-(ops/kernels/).  With ``device="cpu"`` the same chain runs the kernels'
-plain PyTorch versions.  Rare host-only SPI operations (key generation,
-signing, aggregation) go to the port's copy of the pure-Python oracle.
+prepare -> h2c (unique width) -> scalars -> miller -> finish
+(ops/kernels/), where the scalars stage is the 64-bit ladder with the
+per-row fold (scalars_group) or the GLV + Pippenger MSM (scalars_msm),
+chosen per dispatch by ops/msm.py's path rule.  With ``device="cpu"``
+the same chain runs the kernels' plain PyTorch versions.  Rare
+host-only SPI operations (key generation, signing, aggregation) go to
+the port's copy of the pure-Python oracle.
 """
 
 import hashlib
@@ -27,9 +30,11 @@ from ..crypto.bls.pure_impl import PureBls12381
 from ..crypto.bls.spi import BLS12381, BatchSemiAggregate, ResolvedHandle
 from . import h2c_cache as HC
 from . import limbs as fp
+from . import msm
 from . import shapeset as SS
 from .kernels import decompress as KD
 from .kernels import h2c as KH
+from .kernels import msm as KM
 from .kernels import pairing as KP
 from .kernels import scalars_group as KS
 
@@ -154,6 +159,7 @@ class TorchBls12381(BLS12381):
         self._h2c_cache = HC.H2cPointCache(self.device, h2c_cache_capacity)
         self.dispatch_count = 0
         self.h2c_dispatch_count = 0
+        self.msm_dispatches = {"ladder": 0, "pippenger": 0}
 
     # ------------------------------------------------------------------
     # Host-side SPI ops delegated to the oracle
@@ -398,9 +404,21 @@ class TorchBls12381(BLS12381):
         for r, (_, g) in enumerate(rows):
             group_idx[r, :len(g)] = g
             group_present[r, :len(g)] = True
+        # the scalars stage's path, per dispatch: the ladder takes 64-bit
+        # multipliers (0 nudged to 1); pippenger splits the same draw
+        # into GLV halves (k1, k2), or takes (1, 0) for r = 1
+        msm_path = msm.resolve(lanes=n, rows=len(rows), device=self.device)
+        raw = glv_digits = None
         if randomize:
             raw = np.asarray(self._multipliers(padded), dtype=np.uint64).copy()
-            raw[raw == 0] = 1
+            if msm_path == "pippenger":
+                k1, k2 = msm.glv_sample_from_uint64(raw)
+                glv_digits, raw = msm.glv_digits_np(k1, k2), None
+            else:
+                raw[raw == 0] = 1
+        elif msm_path == "pippenger":
+            glv_digits = msm.glv_digits_np(np.ones(padded, dtype=np.uint64),
+                                           np.zeros(padded, dtype=np.uint64))
         else:
             raw = np.ones(padded, dtype=np.uint64)
         return {
@@ -408,7 +426,9 @@ class TorchBls12381(BLS12381):
             "sig_x0": fp.bytes_to_words_np(sig_bytes[:, 1]),
             "sig_x1": fp.bytes_to_words_np(sig_bytes[:, 0]),
             "sig_large": s_large, "sig_inf": s_inf, "lane_valid": lane_valid,
-            "r": raw.view(np.int64), "group_idx": group_idx,
+            "msm_path": msm_path, "glv_digits": glv_digits,
+            "r": None if raw is None else raw.view(np.int64),
+            "group_idx": group_idx,
             "group_present": group_present,
             "hm_plan": self._hm_host_plan(row_msgs, u_total)}
 
@@ -421,9 +441,17 @@ class TorchBls12381(BLS12381):
             d(plan["pk_x"]), d(plan["pk_y"]), d(plan["pk_present"]),
             d(plan["sig_x0"]), d(plan["sig_x1"]), d(plan["sig_large"]),
             d(plan["sig_inf"]), d(plan["lane_valid"]))
-        agg, u_mask, wsig = KS.scalars_group(
-            pk_jac, sig_jac, d(plan["r"]), miller_mask, d(plan["group_idx"]),
-            d(plan["group_present"]))
+        group_idx = d(plan["group_idx"])
+        group_present = d(plan["group_present"])
+        self.msm_dispatches[plan["msm_path"]] += 1
+        if plan["msm_path"] == "pippenger":
+            agg, u_mask, wsig = KM.scalars_msm(
+                pk_jac, sig_jac, d(plan["glv_digits"]), miller_mask, group_idx,
+                group_present)
+        else:
+            agg, u_mask, wsig = KS.scalars_group(
+                pk_jac, sig_jac, d(plan["r"]), miller_mask, group_idx,
+                group_present)
         ml = KP.miller(agg, hm, u_mask)
         ok = KP.finish(ml, wsig)
         return DispatchHandle(ok, lane_ok, plan["lanes"])

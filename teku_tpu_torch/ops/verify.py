@@ -5,7 +5,9 @@
 The stage functions keep the reference's argument contracts (15 x 26
 Montgomery limbs, the same masks), so each can be held against its
 JAX counterpart: prepare -> h2c (unique width) -> scalars -> group ->
-miller -> finish.  ``verify_staged_grouped`` chains them.  The kernels
+miller -> finish.  ``verify_staged_grouped`` chains them;
+``verify_staged_pippenger`` runs the GLV + Pippenger scalars stage
+(ops/msm.py) in place of scalars + group.  The kernels
 in ops/kernels/ compute the same stages on canonical words; their
 plain versions call these functions.
 """
@@ -15,6 +17,7 @@ import torch
 from ..crypto.bls import curve as C
 from . import h2c
 from . import limbs as fp
+from . import msm as MSM
 from . import pairing as PR
 from . import points as PT
 from . import towers as T
@@ -95,6 +98,19 @@ def stage_group(pk_r_jac, miller_mask, group_idx, group_present):
     return to_affine_g1(agg), u_mask
 
 
+def stage_scalars_pippenger(pk_jac, sig_jac, glv_digits, group_idx,
+                            group_present, miller_mask):
+    """The MSM replacement of stage_scalars + stage_group: (N, 2, nwin)
+    GLV digits in place of r bits, Pippenger MSMs for the per-row G1
+    folds and the whole-batch G2 fold.  Returns (agg_aff (U, L),
+    u_mask (U,), wsig (1,)-batched Jacobian)."""
+    agg = MSM.g1_grouped_msm(pk_jac, glv_digits, group_idx, group_present,
+                             miller_mask)
+    u_mask = ~PT.is_infinity(PT.G1_KIT, agg)
+    wsig = MSM.g2_msm(sig_jac, glv_digits)
+    return to_affine_g1(agg), u_mask, wsig
+
+
 def stage_miller(pk_r_aff, hm_aff, mask):
     return PR.miller_loop(pk_r_aff, hm_aff, mask=mask)
 
@@ -127,6 +143,20 @@ def verify_staged_grouped(pk_xs, pk_ys, pk_present, hm_uniq, group_idx,
     pk_r_jac, wsig = stage_scalars(pk_jac, sig_jac, r_bits)
     agg_aff, u_mask = stage_group(pk_r_jac, miller_mask, group_idx,
                                   group_present)
+    ml = stage_miller(agg_aff, hm_uniq, u_mask)
+    return stage_finish(ml, wsig), lane_ok
+
+
+def verify_staged_pippenger(pk_xs, pk_ys, pk_present, hm_uniq, group_idx,
+                            group_present, sig_x_plain, sig_large, sig_inf,
+                            glv_digits, lane_valid):
+    """The staged grouped pipeline with the GLV + Pippenger scalars
+    stage: (ok, lane_ok)."""
+    pk_jac, sig_jac, lane_ok, miller_mask = stage_prepare(
+        pk_xs, pk_ys, pk_present, sig_x_plain, sig_large, sig_inf,
+        lane_valid)
+    agg_aff, u_mask, wsig = stage_scalars_pippenger(
+        pk_jac, sig_jac, glv_digits, group_idx, group_present, miller_mask)
     ml = stage_miller(agg_aff, hm_uniq, u_mask)
     return stage_finish(ml, wsig), lane_ok
 

@@ -103,3 +103,13 @@ def test_port_imports_neither_jax_nor_the_reference():
             bad += [f"{path.name}: {m}" for m in mods
                     if m.split(".")[0] in ("jax", "jaxlib", "teku_tpu")]
     assert len(files) > 20 and not bad, bad
+    # the MSM slice: its modules are checked too, and its path rule
+    # reads no environment variable
+    names = {str(p.relative_to(root)) for p in files}
+    assert {"teku_tpu_torch/ops/msm.py",
+            "teku_tpu_torch/ops/kernels/msm.py"} <= names
+    msm_src = (root / "teku_tpu_torch/ops/msm.py").read_text()
+    assert not any(isinstance(node, (ast.Import, ast.ImportFrom)) and any(
+        a.name == "os" for a in node.names) for node in ast.walk(
+            ast.parse(msm_src)))
+    assert "os.environ" not in msm_src and "getenv" not in msm_src
