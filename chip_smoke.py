@@ -20,17 +20,25 @@ Phases, each fatal on failure (exit code 1, no result line):
               over 64 messages, under `auto` (must resolve to the
               ladder).  Each must verify, and a copy with one swapped
               signature must not.  Launch counters are zeroed just before
-              and read just after; every kernel must have launched.
-4. timing  -- each kernel at workload A's shapes (CUDA events),
-              its plain version on the same inputs, and its bound: the
+              each of the three paths and read just after it: each path
+              must have launched its own scalars kernel and not the
+              other's, and every kernel must have launched on some path.
+              Then the valid A batch runs warm 7 times on each path,
+              interleaved (median and spread of the batch wall time).
+4. timing  -- each kernel at workload A's shapes (CUDA events; finish
+              on both the 1-lane wsig of scalars_msm and the 256-lane
+              wsig of scalars_group), held against its plain version on
+              the same inputs and timed there, and its bound: the
               int32 multiply-adds it executes on these inputs (counted by
               the host C++ build of the same source: 576 per Montgomery
               product) over the card's IMAD rate, or its bytes over the
               memory rate, whichever is larger.
 
 Prints the card's name and power limit, one JSON line of per-kernel
-numbers, and last {"ok": true, "device": {...}}.  Keys and signatures
-come from the port's pure-Python oracle with --seed (default 2026).
+numbers (a row per kernel and scalars path it was timed on, with its
+launches on that path), and last {"ok": true, "device": {...}}.  Keys
+and signatures come from the port's pure-Python oracle with --seed
+(default 2026).
 """
 
 import argparse
@@ -316,64 +324,102 @@ def workload_a(signer):
     return [signer.triple([i], m) for i, m in enumerate(msgs)]
 
 
+def workload_b(signer):
+    """64 aggregates of 128 keys over 64 messages (rows of 1)."""
+    return [signer.triple([(2 * lane + j) % len(signer.sks)
+                           for j in range(128)], b"aggregate-%d" % lane)
+            for lane in range(64)]
+
+
+# the scalars kernel each resolved path launches
+SCALARS = {"pippenger": "scalars_msm", "ladder": "scalars_group"}
+WARM_REPS = 7
+
+
 def phase_verify(signer, dev, recorder):
+    """Drive the three paths; returns {group: launches} and the warm
+    repeats of A per path."""
     import torch
     from teku_tpu_torch.ops import kernels as K
     from teku_tpu_torch.ops import msm
     from teku_tpu_torch.ops.provider import TorchBls12381
-    batch_a = workload_a(signer)
-    batch_b = [signer.triple([(2 * lane + j) % len(signer.sks)
-                              for j in range(128)], b"aggregate-%d" % lane)
-               for lane in range(64)]
-    # (label, triples, expected verdict, configured path, resolved path)
-    cases = [("A: 256 lanes x 1 key, 4 messages, auto", batch_a, True,
-              "auto", "pippenger"),
-             ("A, one swapped signature, auto", swap_sig(batch_a, 5, 6),
-              False, "auto", "pippenger"),
-             ("A under the ladder", batch_a, True, "ladder", "ladder"),
-             ("A, one swapped signature, ladder", swap_sig(batch_a, 7, 8),
-              False, "ladder", "ladder"),
-             ("B: 64 lanes x 128 keys, 64 messages, auto", batch_b, True,
-              "auto", "ladder"),
-             ("B, one swapped signature, auto", swap_sig(batch_b, 3, 4),
-              False, "auto", "ladder")]
+    batch_a, batch_b = workload_a(signer), workload_b(signer)
+    # (group, configured path, resolved path, [(label, triples, verdict)]);
+    # A's first batch and B's first batch are cold
+    groups = [
+        ("A/auto", "auto", "pippenger", [
+            ("A: 256 lanes x 1 key, 4 messages", batch_a, True),
+            ("A, one swapped signature", swap_sig(batch_a, 5, 6), False)]),
+        ("A/ladder", "ladder", "ladder", [
+            ("A", batch_a, True),
+            ("A, one swapped signature", swap_sig(batch_a, 7, 8), False)]),
+        ("B/auto", "auto", "ladder", [
+            ("B: 64 lanes x 128 keys, 64 messages", batch_b, True),
+            ("B, one swapped signature", swap_sig(batch_b, 3, 4), False)])]
     prov = TorchBls12381(device=dev)
-    torch.cuda.synchronize()
-    K.reset_launches()
-    recorder.on = True
-    results = []
-    for label, triples, expect, path, _ in cases:
-        before = dict(prov.msm_dispatches)
-        with msm.force(path):
-            t0 = time.perf_counter()
-            got = prov.batch_verify(triples)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-        ran = [p for p, c in prov.msm_dispatches.items() if c != before[p]]
-        results.append((label, got, expect, dt, ran))
-    recorder.on = False
-    launches = {name: K.LAUNCHES[name] for name in KERNELS}
-    for label, got, expect, dt, ran in results:
-        log(f"[verify] {label}: {got} (expected {expect}) on {ran} in "
-            f"{dt * 1e3:.1f} ms")
-    log(f"[verify] launches: {json.dumps(launches)}; msm dispatches: "
-        f"{json.dumps(prov.msm_dispatches)}")
-    for (label, got, expect, _, ran), case in zip(results, cases):
-        if got is not expect:
-            fail(f"batch '{label}' verified {got}, expected {expect}")
-        if ran != [case[4]]:
-            fail(f"batch '{label}' ran the scalars path {ran}, expected "
-                 f"{case[4]}")
+    launches = {}
+    for group, path, resolved, cases in groups:
+        results = []
+        torch.cuda.synchronize()
+        K.reset_launches()
+        recorder.group = group
+        for label, triples, expect in cases:
+            before = dict(prov.msm_dispatches)
+            with msm.force(path):
+                t0 = time.perf_counter()
+                got = prov.batch_verify(triples)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            ran = [p for p, c in prov.msm_dispatches.items() if c != before[p]]
+            results.append((label, got, expect, dt, ran))
+        recorder.group = None
+        launches[group] = {name: K.LAUNCHES[name] for name in KERNELS}
+        for label, got, expect, dt, ran in results:
+            log(f"[verify] {group} {label}: {got} (expected {expect}) on "
+                f"{ran} in {dt * 1e3:.1f} ms")
+        log(f"[verify] {group} launches: {json.dumps(launches[group])}")
+        for label, got, expect, _, ran in results:
+            if got is not expect:
+                fail(f"{group} batch '{label}' verified {got}, expected "
+                     f"{expect}")
+            if ran != [resolved]:
+                fail(f"{group} batch '{label}' ran the scalars path {ran}, "
+                     f"expected {resolved}")
+        other = SCALARS["ladder" if resolved == "pippenger" else "pippenger"]
+        for name in ("prepare", SCALARS[resolved], "miller", "finish"):
+            if launches[group][name] < 1:
+                fail(f"{group}: kernel {name} was not launched")
+        if launches[group][other] != 0:
+            fail(f"{group}: {other} launched on the {resolved} path")
     for name in KERNELS:
-        if launches.get(name, 0) < 1:
+        if not any(c[name] for c in launches.values()):
             fail(f"kernel {name} was not launched on the main path")
+    # warm repeats of the valid A batch on each path, interleaved
+    warm = {"auto": [], "ladder": []}
+    for _ in range(WARM_REPS):
+        for path, times in warm.items():
+            with msm.force(path):
+                t0 = time.perf_counter()
+                got = prov.batch_verify(batch_a)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            if got is not True:
+                fail(f"warm A under {path} verified {got}")
+    diffs = sorted(a - b for a, b in zip(warm["auto"], warm["ladder"]))
+    for path, times in warm.items():
+        ts = sorted(times)
+        log(f"[verify] A warm under {path}, {WARM_REPS} repeats: median "
+            f"{ts[len(ts) // 2]:.2f} ms, min {ts[0]:.2f}, max {ts[-1]:.2f}")
+    log(f"[verify] A warm, auto - ladder per interleaved pair: median "
+        f"{diffs[len(diffs) // 2]:+.2f} ms, min {diffs[0]:+.2f}, "
+        f"max {diffs[-1]:+.2f}")
+    log(f"[verify] msm dispatches: {json.dumps(prov.msm_dispatches)}")
     return launches
 
 
 class Recorder:
-    """Keeps the first call's arguments of each kernel wrapper while on
-    (wraps the module attributes the provider calls): workload A's
-    shapes, scalars_group's from A under the ladder."""
+    """Keeps the first call's arguments of each kernel wrapper per verify
+    group (wraps the module attributes the provider calls)."""
 
     def __init__(self):
         from teku_tpu_torch.ops.kernels import decompress as KD
@@ -381,7 +427,7 @@ class Recorder:
         from teku_tpu_torch.ops.kernels import msm as KM
         from teku_tpu_torch.ops.kernels import pairing as KP
         from teku_tpu_torch.ops.kernels import scalars_group as KS
-        self.on = False
+        self.group = None
         self.args = {}
         for mod, name in ((KD, "g1_validate"), (KD, "prepare"), (KH, "h2c"),
                           (KS, "scalars_group"), (KM, "scalars_msm"),
@@ -392,8 +438,9 @@ class Recorder:
         orig = getattr(mod, name)
 
         def wrapper(*args):
-            if self.on and name not in self.args:
-                self.args[name] = args
+            key = (self.group, name)
+            if self.group is not None and key not in self.args:
+                self.args[key] = args
             return orig(*args)
         setattr(mod, name, wrapper)
 
@@ -420,6 +467,15 @@ def nbytes(xs) -> int:
     return sum(x.numel() * x.element_size() for x in xs if torch.is_tensor(x))
 
 
+# (kernel, verify group whose first call it is timed on): workload A's
+# shapes; finish on both wsig widths (1 lane from scalars_msm, 256 from
+# scalars_group)
+TIMED = [("g1_validate", "A/auto"), ("prepare", "A/auto"), ("h2c", "A/auto"),
+         ("scalars_group", "A/ladder"), ("scalars_msm", "A/auto"),
+         ("miller", "A/auto"), ("finish", "A/auto"), ("finish", "A/ladder")]
+GROUP_PATH = {"A/auto": "pippenger", "A/ladder": "ladder"}
+
+
 def phase_timing(recorder, launches, dev):
     import torch
     from teku_tpu_torch.ops import _build
@@ -430,8 +486,9 @@ def phase_timing(recorder, launches, dev):
         f"MHz: {imad_rate / 1e12:.2f} T IMAD/s; HBM {HBM_BYTES_PER_S / 1e12} TB/s")
     kr, pr, hr = kernel_runner(), plain_runner(), kernel_runner(host=True)
     rows = []
-    for name, (stem, replaces) in KERNELS.items():
-        args = recorder.args[name]
+    for name, group in TIMED:
+        stem, replaces = KERNELS[name]
+        args = recorder.args[(group, name)]
         kout = as_tuple(kr(name, *args))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -447,19 +504,22 @@ def phase_timing(recorder, launches, dev):
         mads = muls * MADS_PER_MONT_MUL
         ops_ms = mads / imad_rate * 1e3
         bytes_ms = (nbytes(args) + nbytes(kout)) / HBM_BYTES_PER_S * 1e3
-        shapes = "x".join(str(s) for s in args[0].shape)
-        log(f"[timing] {name:14s} in {shapes}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.1f} ms, {mads:.3e} IMAD -> bound {max(ops_ms, bytes_ms):.4f} ms")
-        rows.append({"name": name, "route": "cuda",
+        shapes = ", ".join("x".join(str(d) for d in a.shape) for a in args
+                           if torch.is_tensor(a))
+        log(f"[timing] {name:14s} {group:8s} in ({shapes}): kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.1f} ms, {mads:.3e} IMAD -> "
+            f"bound {max(ops_ms, bytes_ms):.4f} ms")
+        rows.append({"name": name, "path": GROUP_PATH[group], "route": "cuda",
                      "source": f"teku_tpu_torch/ops/kernels/{stem}.cu",
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": launches[group][name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": max(ops_ms, bytes_ms),
                      "bound_by": "operations" if ops_ms >= bytes_ms
                      else "bytes",
                      "library_ms": None})
         if err != 0:
-            fail(f"{name} disagrees with its plain version at full width")
+            fail(f"{name} disagrees with its plain version at {group}'s "
+                 f"shapes")
     return rows
 
 

@@ -27,8 +27,6 @@ functions' bit for bit; ops/kernels/msm.cu computes the same values on
 the card.
 """
 
-import threading
-
 import numpy as np
 import torch
 
@@ -47,10 +45,12 @@ LAMBDA = (-(X_ABS * X_ABS)) % R
 
 WINDOW = 4            # digit width w: 2^w - 1 = 15 buckets per window
 G2_SEG = 32           # G2 columns per bucket-accumulation segment
+# auto's crossover: the reference's defaults, tuned on the TPU and not
+# measured on a GPU; on an H100 they send workload A of chip_smoke.py
+# (256 lanes, duplication 32) to the slower path (PERF.md section 5)
 AUTO_MIN_LANES = 32
 AUTO_MIN_DUP = 2.0
 
-_lock = threading.Lock()
 _state = {"path": "auto"}
 
 
@@ -59,8 +59,7 @@ def set_path(path) -> None:
     if path is not None and path not in PATHS:
         raise ValueError(
             f"unknown msm path {path!r} (use one of {'/'.join(PATHS)})")
-    with _lock:
-        _state["path"] = "auto" if path is None else path
+    _state["path"] = "auto" if path is None else path
 
 
 def get_path() -> str:
@@ -71,7 +70,9 @@ def get_path() -> str:
 def explain(lanes=None, rows=None, device=None):
     """(path, why) for one dispatch: the effective path ('ladder' or
     'pippenger') and the decision context -- configured path, lanes,
-    rows, whether the device is a CUDA card, thresholds, the rule."""
+    rows, whether the device is a CUDA card, thresholds, the rule.
+    ``why`` mirrors the record of the reference's explain (its dispatch
+    ledger stores it); the provider itself only calls resolve()."""
     why = {"configured": get_path(), "lanes": lanes, "rows": rows}
     configured = why["configured"]
     if configured in ("ladder", "pippenger"):
