@@ -15,30 +15,46 @@ Phases, each fatal on failure (exit code 1, no result line):
 3. verify  -- drive TorchBls12381(device="cuda") through batch_verify:
               workload A, a 256-lane batch of single-key attestations
               over 4 messages (rows of 32), under the msm path rule's
-              `auto` (must resolve to pippenger) and forced onto the
+              `auto` (must resolve to the ladder, as the reference's rule
+              does off a TPU), forced onto pippenger and forced onto the
               ladder; workload B, a 64-lane batch of 128-key aggregates
-              over 64 messages, under `auto` (must resolve to the
-              ladder).  Each must verify, and a copy with one swapped
-              signature must not.  Launch counters are zeroed just before
-              each of the three paths and read just after it: each path
-              must have launched its own scalars kernel and not the
-              other's, and every kernel must have launched on some path.
-              Then the valid A batch runs warm 7 times on each path,
-              interleaved (median and spread of the batch wall time).
-4. timing  -- each kernel at workload A's shapes (CUDA events; finish
-              on both the 1-lane wsig of scalars_msm and the 256-lane
-              wsig of scalars_group), held against its plain version on
-              the same inputs and timed there, and its bound: the
+              over 64 messages, under `auto` (the ladder).  Each must
+              verify, and a copy with one swapped signature must not.
+              Launch counters are zeroed just before each of the four
+              paths and read just after it: each path must have launched
+              its own scalars kernel and not the other's, and every
+              kernel must have launched on some path.  Then the valid A
+              batch runs warm 7 times on each of A's paths, interleaved
+              (median and spread of the batch wall time).
+4. kzg     -- drive the blob path: the mainnet trusted setup (the port's
+              copy of the ceremony file), TorchKzg(device="cuda") behind
+              crypto/kzg's set_backend; 9 seeded blobs, their commitments
+              and proofs through the facade (kzg_msm over the 4096
+              Lagrange points), one commitment held against the host
+              Pippenger g1_msm; verify_blob_kzg_proof_batch on 6 blobs
+              (MAX_BLOBS_PER_BLOCK) valid, with swapped proofs, with a
+              field element set to r and with a malformed commitment;
+              verify_kzg_proof valid and with y + 1; 9 blobs
+              (MAX_BLOBS_PER_BLOCK_ELECTRA) valid and with one bad
+              proof; the zero blob's infinity commitment.  Counters are
+              zeroed before and read after: kzg_eval, kzg_fold, kzg_msm
+              and g1_validate must have launched.  Then the warm 6- and
+              9-blob batches, 7 repeats each, interleaved.
+5. timing  -- each kernel at the main path's shapes (A's for the BLS
+              kernels, finish on both the 1-lane wsig of scalars_msm and
+              the 256-lane wsig of scalars_group; the KZG path's for the
+              KZG kernels), CUDA events, held against its plain version
+              on the same inputs and timed there, and its bound: the
               int32 multiply-adds it executes on these inputs (counted by
-              the host C++ build of the same source: 576 per Montgomery
-              product) over the card's IMAD rate, or its bytes over the
-              memory rate, whichever is larger.
+              the host C++ build of the same source: 576 per Fq and 256
+              per Fr Montgomery product) over the card's IMAD rate, or
+              its bytes over the memory rate, whichever is larger.
 
 Prints the card's name and power limit, one JSON line of per-kernel
-numbers (a row per kernel and scalars path it was timed on, with its
-launches on that path), and last {"ok": true, "device": {...}}.  Keys
-and signatures come from the port's pure-Python oracle with --seed
-(default 2026).
+numbers (a row per kernel and path it was timed on -- ladder, pippenger,
+kzg -- with its launches on that path), and last {"ok": true, "device":
+{...}}.  Keys and signatures come from the port's pure-Python oracle,
+blobs from numpy, both with --seed (default 2026).
 """
 
 import argparse
@@ -54,6 +70,7 @@ import time
 IMAD_PER_SM_CLOCK = 64
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 MADS_PER_MONT_MUL = 576             # fp381.cuh: 12 rows x 4 chains x 12
+MADS_PER_FR_MUL = 256               # fr255.cuh: 8 rows x 4 chains x 8
 
 KERNELS = {
     # wrapper: (kernel source stem, the TPU program it replaces)
@@ -64,7 +81,13 @@ KERNELS = {
     "scalars_msm": ("msm", "teku_tpu/ops/verify.py:246 + ops/msm.py:333-493"),
     "miller": ("pairing", "teku_tpu/ops/verify.py:266"),
     "finish": ("pairing", "teku_tpu/ops/verify.py:272"),
+    "kzg_eval": ("kzg", "teku_tpu/ops/kzg.py:112"),
+    "kzg_fold": ("kzg", "teku_tpu/ops/kzg.py:149"),
+    "kzg_msm": ("kzg", "teku_tpu/ops/kzg.py:180"),
 }
+BLS_KERNELS = ("g1_validate", "prepare", "h2c", "scalars_group",
+               "scalars_msm", "miller", "finish")
+KZG_KERNELS = ("g1_validate", "kzg_eval", "kzg_fold", "kzg_msm")
 
 
 def fail(msg: str) -> None:
@@ -201,6 +224,7 @@ def kernel_runner(host=False):
     C++ build), bypassing the wrapper and its launch counter."""
     from teku_tpu_torch.ops.kernels import decompress as KD
     from teku_tpu_torch.ops.kernels import h2c as KH
+    from teku_tpu_torch.ops.kernels import kzg as KK
     from teku_tpu_torch.ops.kernels import lib
     from teku_tpu_torch.ops.kernels import msm as KM
     from teku_tpu_torch.ops.kernels import pairing as KP
@@ -208,7 +232,9 @@ def kernel_runner(host=False):
     table = {"g1_validate": KD._run_g1_validate, "prepare": KD._run_prepare,
              "h2c": KH._run_h2c, "scalars_group": KS._run_scalars_group,
              "scalars_msm": KM._run_scalars_msm,
-             "miller": KP._run_miller, "finish": KP._run_finish}
+             "miller": KP._run_miller, "finish": KP._run_finish,
+             "kzg_eval": KK._run_kzg_eval, "kzg_fold": KK._run_kzg_fold,
+             "kzg_msm": KK._run_kzg_msm}
 
     def run(name, *args):
         return table[name](lib(KERNELS[name][0], host=host), *args)
@@ -218,6 +244,7 @@ def kernel_runner(host=False):
 def plain_runner():
     from teku_tpu_torch.ops.kernels import decompress as KD
     from teku_tpu_torch.ops.kernels import h2c as KH
+    from teku_tpu_torch.ops.kernels import kzg as KK
     from teku_tpu_torch.ops.kernels import msm as KM
     from teku_tpu_torch.ops.kernels import pairing as KP
     from teku_tpu_torch.ops.kernels import scalars_group as KS
@@ -225,7 +252,9 @@ def plain_runner():
              "prepare": KD.prepare_plain, "h2c": KH.h2c_plain,
              "scalars_group": KS.scalars_group_plain,
              "scalars_msm": KM.scalars_msm_plain,
-             "miller": KP.miller_plain, "finish": KP.finish_plain}
+             "miller": KP.miller_plain, "finish": KP.finish_plain,
+             "kzg_eval": KK.kzg_eval_plain, "kzg_fold": KK.kzg_fold_plain,
+             "kzg_msm": KK.kzg_msm_plain}
     return lambda name, *args: table[name](*args)
 
 
@@ -301,9 +330,10 @@ def phase_parity(signer, dev):
     # scalars_msm at workload A's shapes: 256 lanes in 8 rows of 32,
     # 512 G2 columns in 16 segments
     semis = [prov.prepare_batch_verify(t) for t in workload_a(signer)]
-    plan = prov.plan(semis, randomize=True)
+    with msm.force("pippenger"):
+        plan = prov.plan(semis, randomize=True)
     if plan["msm_path"] != "pippenger":
-        fail(f"workload A resolved to {plan['msm_path']} under auto")
+        fail(f"workload A resolved to {plan['msm_path']} under pippenger")
     t = {k: torch.from_numpy(v).to(dev) for k, v in plan.items()
          if isinstance(v, np.ndarray)}
     pk_jac, sig_jac, _, mmask = kr("prepare", *(t[k] for k in (
@@ -336,6 +366,13 @@ SCALARS = {"pippenger": "scalars_msm", "ladder": "scalars_group"}
 WARM_REPS = 7
 
 
+def spread(times, signed=False) -> str:
+    ts = sorted(times)
+    f = "{:+.2f}" if signed else "{:.2f}"
+    return (f"median {f.format(ts[len(ts) // 2])} ms, min "
+            f"{f.format(ts[0])}, max {f.format(ts[-1])}")
+
+
 def phase_verify(signer, dev, recorder):
     """Drive the three paths; returns {group: launches} and the warm
     repeats of A per path."""
@@ -347,9 +384,12 @@ def phase_verify(signer, dev, recorder):
     # (group, configured path, resolved path, [(label, triples, verdict)]);
     # A's first batch and B's first batch are cold
     groups = [
-        ("A/auto", "auto", "pippenger", [
+        ("A/auto", "auto", "ladder", [
             ("A: 256 lanes x 1 key, 4 messages", batch_a, True),
             ("A, one swapped signature", swap_sig(batch_a, 5, 6), False)]),
+        ("A/pippenger", "pippenger", "pippenger", [
+            ("A", batch_a, True),
+            ("A, one swapped signature", swap_sig(batch_a, 9, 10), False)]),
         ("A/ladder", "ladder", "ladder", [
             ("A", batch_a, True),
             ("A, one swapped signature", swap_sig(batch_a, 7, 8), False)]),
@@ -373,7 +413,7 @@ def phase_verify(signer, dev, recorder):
             ran = [p for p, c in prov.msm_dispatches.items() if c != before[p]]
             results.append((label, got, expect, dt, ran))
         recorder.group = None
-        launches[group] = {name: K.LAUNCHES[name] for name in KERNELS}
+        launches[group] = {name: K.LAUNCHES[name] for name in BLS_KERNELS}
         for label, got, expect, dt, ran in results:
             log(f"[verify] {group} {label}: {got} (expected {expect}) on "
                 f"{ran} in {dt * 1e3:.1f} ms")
@@ -391,11 +431,11 @@ def phase_verify(signer, dev, recorder):
                 fail(f"{group}: kernel {name} was not launched")
         if launches[group][other] != 0:
             fail(f"{group}: {other} launched on the {resolved} path")
-    for name in KERNELS:
+    for name in BLS_KERNELS:
         if not any(c[name] for c in launches.values()):
             fail(f"kernel {name} was not launched on the main path")
     # warm repeats of the valid A batch on each path, interleaved
-    warm = {"auto": [], "ladder": []}
+    warm = {"auto": [], "ladder": [], "pippenger": []}
     for _ in range(WARM_REPS):
         for path, times in warm.items():
             with msm.force(path):
@@ -405,25 +445,148 @@ def phase_verify(signer, dev, recorder):
                 times.append((time.perf_counter() - t0) * 1e3)
             if got is not True:
                 fail(f"warm A under {path} verified {got}")
-    diffs = sorted(a - b for a, b in zip(warm["auto"], warm["ladder"]))
     for path, times in warm.items():
-        ts = sorted(times)
-        log(f"[verify] A warm under {path}, {WARM_REPS} repeats: median "
-            f"{ts[len(ts) // 2]:.2f} ms, min {ts[0]:.2f}, max {ts[-1]:.2f}")
-    log(f"[verify] A warm, auto - ladder per interleaved pair: median "
-        f"{diffs[len(diffs) // 2]:+.2f} ms, min {diffs[0]:+.2f}, "
-        f"max {diffs[-1]:+.2f}")
+        log(f"[verify] A warm under {path}, {WARM_REPS} repeats: "
+            f"{spread(times)}")
+    for path in ("auto", "pippenger"):
+        diffs = [a - b for a, b in zip(warm[path], warm["ladder"])]
+        log(f"[verify] A warm, {path} - ladder per interleaved pair: "
+            f"{spread(diffs, signed=True)}")
     log(f"[verify] msm dispatches: {json.dumps(prov.msm_dispatches)}")
+    return launches
+
+
+BLOBS_PER_BLOCK = 6            # MAX_BLOBS_PER_BLOCK (Deneb)
+BLOBS_PER_BLOCK_ELECTRA = 9    # MAX_BLOBS_PER_BLOCK_ELECTRA
+
+
+def seeded_blobs(seed: int, n: int):
+    """n blobs of 4096 canonical field elements from a seeded generator."""
+    import numpy as np
+    from teku_tpu_torch.crypto import kzg as HK
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        raw = rng.integers(0, 256, (HK.FIELD_ELEMENTS_PER_BLOB, 32),
+                           dtype=np.uint8)
+        raw[:, 0] &= 0x3F                  # < 2^254 < r: canonical
+        out.append(raw.tobytes())
+    return out
+
+
+def phase_kzg(dev, seed, recorder):
+    """The blob path through the crypto/kzg facade on TorchKzg; returns
+    the launches of the path's kernels."""
+    import torch
+    from teku_tpu_torch.crypto import kzg as HK
+    from teku_tpu_torch.crypto.bls import curve as C
+    from teku_tpu_torch.crypto.bls.constants import R
+    from teku_tpu_torch.ops import kernels as K
+    from teku_tpu_torch.ops.kzg import TorchKzg
+    t0 = time.perf_counter()
+    setup = HK.get_setup()
+    log(f"[kzg] mainnet trusted setup ({len(setup.g1_lagrange)} G1 "
+        f"Lagrange, {len(setup.g2_monomial)} G2 points) loaded in "
+        f"{time.perf_counter() - t0:.1f} s from {HK.REFERENCE_SETUP_PATH}")
+    backend = TorchKzg(device=dev)
+    HK.set_backend(backend)
+    blobs = seeded_blobs(seed, BLOBS_PER_BLOCK_ELECTRA)
+    zero_blob = bytes(HK.BYTES_PER_BLOB)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    recorder.group = "kzg"
+    t0 = time.perf_counter()
+    cms = [HK.blob_to_kzg_commitment(b) for b in blobs]
+    prs = [HK.compute_blob_kzg_proof(b, c) for b, c in zip(blobs, cms)]
+    zc = HK.blob_to_kzg_commitment(zero_blob)
+    zp = HK.compute_blob_kzg_proof(zero_blob, zc)
+    log(f"[kzg] {len(blobs) + 1} commitments and proofs through the facade "
+        f"in {time.perf_counter() - t0:.1f} s")
+    six = slice(0, BLOBS_PER_BLOCK)
+    bad_fe = bytearray(blobs[2])
+    bad_fe[32 * 100:32 * 101] = R.to_bytes(32, "big")
+    poly = HK.blob_to_polynomial(blobs[0])
+    z = HK.compute_challenge(blobs[0], cms[0])
+    y = HK.evaluate_polynomial_in_evaluation_form(poly, z)
+    proof_z, y_z = HK.compute_kzg_proof_impl(poly, z)
+    bad9 = list(prs)
+    bad9[7] = prs[8]
+    cases = [
+        ("6 blobs", lambda: HK.verify_blob_kzg_proof_batch(
+            blobs[six], cms[six], prs[six]), True),
+        ("6 blobs, proofs swapped", lambda: HK.verify_blob_kzg_proof_batch(
+            blobs[six], cms[six], prs[1:6] + prs[:1]), False),
+        ("6 blobs, a field element set to r",
+         lambda: HK.verify_blob_kzg_proof_batch(
+             blobs[:2] + [bytes(bad_fe)] + blobs[3:6], cms[six], prs[six]),
+         False),
+        ("6 blobs, a malformed commitment",
+         lambda: HK.verify_blob_kzg_proof_batch(
+             blobs[six], [b"\x00" * 48] + cms[1:6], prs[six]), False),
+        ("verify_kzg_proof", lambda: backend.verify_kzg_proof(
+            cms[0], z, y_z, proof_z, setup), True),
+        ("verify_kzg_proof, y + 1", lambda: backend.verify_kzg_proof(
+            cms[0], z, (y_z + 1) % R, proof_z, setup), False),
+        ("9 blobs", lambda: HK.verify_blob_kzg_proof_batch(
+            blobs, cms, prs), True),
+        ("9 blobs, one bad proof", lambda: HK.verify_blob_kzg_proof_batch(
+            blobs, cms, bad9), False),
+        ("the zero blob", lambda: HK.verify_blob_kzg_proof_batch(
+            [zero_blob], [zc], [zp]), True)]
+    results = []
+    for label, fn, expect in cases:
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        results.append((label, got, expect, time.perf_counter() - t0))
+    recorder.group = None
+    launches = {name: K.LAUNCHES[name] for name in KZG_KERNELS}
+    for label, got, expect, dt in results:
+        log(f"[kzg] {label}: {got} (expected {expect}) in {dt * 1e3:.1f} ms")
+    log(f"[kzg] launches: {json.dumps(launches)}")
+    for label, got, expect, _ in results:
+        if got is not expect:
+            fail(f"kzg case '{label}' gave {got}, expected {expect}")
+    if y != y_z:
+        fail("evaluate_polynomial and compute_kzg_proof_impl disagree on y")
+    if zc != bytes([0xC0] + [0] * 47):
+        fail("the zero blob's commitment is not the infinity point")
+    for name in KZG_KERNELS:
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched on the KZG path")
+    # an independent check of the card's MSM: the host Pippenger
+    t0 = time.perf_counter()
+    host_cm = C.g1_compress(HK.g1_msm(setup.g1_lagrange, poly))
+    log(f"[kzg] blob 0's commitment, card kzg_msm vs host Pippenger g1_msm: "
+        f"{'equal' if host_cm == cms[0] else 'DIFFERENT'} "
+        f"({time.perf_counter() - t0:.1f} s on the host)")
+    if host_cm != cms[0]:
+        fail("the card's commitment differs from the host Pippenger's")
+    # warm batches, interleaved
+    warm = {BLOBS_PER_BLOCK: [], BLOBS_PER_BLOCK_ELECTRA: []}
+    for _ in range(WARM_REPS):
+        for n, times in warm.items():
+            t0 = time.perf_counter()
+            got = HK.verify_blob_kzg_proof_batch(blobs[:n], cms[:n], prs[:n])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if got is not True:
+                fail(f"warm {n}-blob batch verified {got}")
+    for n, times in warm.items():
+        log(f"[kzg] warm {n}-blob batch, {WARM_REPS} repeats: "
+            f"{spread(times)}")
+    HK.set_backend(None)
     return launches
 
 
 class Recorder:
     """Keeps the first call's arguments of each kernel wrapper per verify
-    group (wraps the module attributes the provider calls)."""
+    group (wraps the module attributes TorchBls12381 and TorchKzg call)."""
 
     def __init__(self):
         from teku_tpu_torch.ops.kernels import decompress as KD
         from teku_tpu_torch.ops.kernels import h2c as KH
+        from teku_tpu_torch.ops.kernels import kzg as KK
         from teku_tpu_torch.ops.kernels import msm as KM
         from teku_tpu_torch.ops.kernels import pairing as KP
         from teku_tpu_torch.ops.kernels import scalars_group as KS
@@ -431,7 +594,8 @@ class Recorder:
         self.args = {}
         for mod, name in ((KD, "g1_validate"), (KD, "prepare"), (KH, "h2c"),
                           (KS, "scalars_group"), (KM, "scalars_msm"),
-                          (KP, "miller"), (KP, "finish")):
+                          (KP, "miller"), (KP, "finish"), (KK, "kzg_eval"),
+                          (KK, "kzg_fold"), (KK, "kzg_msm")):
             self._wrap(mod, name)
 
     def _wrap(self, mod, name):
@@ -467,13 +631,18 @@ def nbytes(xs) -> int:
     return sum(x.numel() * x.element_size() for x in xs if torch.is_tensor(x))
 
 
-# (kernel, verify group whose first call it is timed on): workload A's
-# shapes; finish on both wsig widths (1 lane from scalars_msm, 256 from
-# scalars_group)
+# (kernel, group whose first call it is timed on): workload A's shapes
+# (finish on both wsig widths: 1 lane from scalars_msm, 256 from
+# scalars_group) and the KZG path's (eval on the padded 6-blob batch, the
+# fold's 32 lanes, the msm's 4096, validation of its 16-lane miss bucket)
 TIMED = [("g1_validate", "A/auto"), ("prepare", "A/auto"), ("h2c", "A/auto"),
-         ("scalars_group", "A/ladder"), ("scalars_msm", "A/auto"),
-         ("miller", "A/auto"), ("finish", "A/auto"), ("finish", "A/ladder")]
-GROUP_PATH = {"A/auto": "pippenger", "A/ladder": "ladder"}
+         ("scalars_group", "A/auto"), ("scalars_msm", "A/pippenger"),
+         ("miller", "A/auto"), ("finish", "A/auto"),
+         ("finish", "A/pippenger"), ("g1_validate", "kzg"),
+         ("kzg_eval", "kzg"), ("kzg_fold", "kzg"), ("kzg_msm", "kzg")]
+GROUP_PATH = {"A/auto": "ladder", "A/pippenger": "pippenger", "kzg": "kzg"}
+# the TPU program each kernel replaces on the KZG path, where it differs
+KZG_REPLACES = {"g1_validate": "teku_tpu/ops/kzg.py:142"}
 
 
 def phase_timing(recorder, launches, dev):
@@ -498,20 +667,24 @@ def phase_timing(recorder, launches, dev):
         err = max(max_err(a, b) for a, b in zip(kout, pout))
         ms = cuda_ms(lambda: kr(name, *args), reps=3)
         host_lib = _build.library(stem, host=True)
-        before = host_lib.fp381_mul_count()
+        fr_count = getattr(host_lib, "fr_mul_count", lambda: 0)
+        before = (host_lib.fp381_mul_count(), fr_count())
         hr(name, *[a.cpu() for a in args])
-        muls = host_lib.fp381_mul_count() - before
-        mads = muls * MADS_PER_MONT_MUL
+        mads = ((host_lib.fp381_mul_count() - before[0]) * MADS_PER_MONT_MUL
+                + (fr_count() - before[1]) * MADS_PER_FR_MUL)
         ops_ms = mads / imad_rate * 1e3
         bytes_ms = (nbytes(args) + nbytes(kout)) / HBM_BYTES_PER_S * 1e3
         shapes = ", ".join("x".join(str(d) for d in a.shape) for a in args
                            if torch.is_tensor(a))
-        log(f"[timing] {name:14s} {group:8s} in ({shapes}): kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.1f} ms, {mads:.3e} IMAD -> "
-            f"bound {max(ops_ms, bytes_ms):.4f} ms")
+        log(f"[timing] {name:14s} {group:11s} in ({shapes}): max |kernel "
+            f"- plain| = {err} (tolerance 0); kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms, {mads:.3e} IMAD -> bound "
+            f"{max(ops_ms, bytes_ms):.4f} ms")
         rows.append({"name": name, "path": GROUP_PATH[group], "route": "cuda",
                      "source": f"teku_tpu_torch/ops/kernels/{stem}.cu",
-                     "replaces": replaces, "launches": launches[group][name],
+                     "replaces": (KZG_REPLACES.get(name, replaces)
+                                  if group == "kzg" else replaces),
+                     "launches": launches[group][name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": max(ops_ms, bytes_ms),
                      "bound_by": "operations" if ops_ms >= bytes_ms
@@ -548,6 +721,9 @@ def main() -> None:
     log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
     recorder = Recorder()
     launches = phase_verify(signer, dev, recorder)
+    t0 = time.perf_counter()
+    launches["kzg"] = phase_kzg(dev, args.seed, recorder)
+    log(f"[kzg] done in {time.perf_counter() - t0:.1f} s")
     rows = phase_timing(recorder, launches, dev)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi("name,power.limit"), flush=True)

@@ -7,9 +7,10 @@ each, all started together) on first use, into ``ops/_build/<key>/``,
 where the key hashes the sources, the generated constants header and
 the flags -- an edit rebuilds, an unchanged tree reuses the libraries.
 
-``fp381_consts.h`` is generated here from the port's own curve
-constants (Montgomery form, R = 2^384), so the kernels and the plain
-PyTorch versions share one source of truth for every constant.
+``fp381_consts.h`` (Fq, R = 2^384) and ``fr255_consts.h`` (the scalar
+field Fr, R = 2^256) are generated here from the port's own constants,
+so the kernels and the plain PyTorch versions share one source of truth
+for every constant.
 
 A missing ``nvcc`` is an error: there is no fallback.  Every C entry
 point returns ``cudaGetLastError()``; ``check`` raises when it is not 0.
@@ -26,12 +27,14 @@ import time
 from ..crypto.bls import curve as C
 from ..crypto.bls import fields as F
 from ..crypto.bls.constants import (B_G1, B_G2, ISO3_X_DEN, ISO3_X_NUM,
-                                    ISO3_Y_DEN, ISO3_Y_NUM, P, SSWU_A2,
+                                    ISO3_Y_DEN, ISO3_Y_NUM, P, R, SSWU_A2,
                                     SSWU_B2, SSWU_Z2, X_ABS)
+from ..crypto.kzg import FIELD_ELEMENTS_PER_BLOB
 
 KERNEL_DIR = os.path.join(os.path.dirname(__file__), "kernels")
 BUILD_ROOT = os.path.join(os.path.dirname(__file__), "_build")
-SOURCES = ("fp381", "decompress", "h2c", "scalars_group", "msm", "pairing")
+SOURCES = ("fp381", "decompress", "h2c", "scalars_group", "msm", "pairing",
+           "kzg")
 NVCC_FLAGS = ["-O3", "-arch=sm_90a", "-std=c++17", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 # the host build: the same sources as C++ (no __CUDACC__), each kernel a
@@ -112,6 +115,26 @@ def constants_header() -> str:
     return "\n".join(lines) + "\n"
 
 
+FR_R_MONT = (1 << 256) % R
+
+
+def fr_constants_header() -> str:
+    """The generated Fr constants header (C text)."""
+    def frc(name, x):
+        return f"DCONST fr {name} = {{{{{_words(x, 8)}}}}};"
+    e = R - 2
+    return "\n".join([
+        "// generated by teku_tpu_torch/ops/_build.py -- do not edit",
+        "#pragma once",
+        f"#define FR_N0 0x{(-pow(R, -1, 1 << 32)) % (1 << 32):08x}u",
+        frc("FR_M", R),
+        frc("FR_ONE", FR_R_MONT),
+        frc("FR_R2", FR_R_MONT * FR_R_MONT % R),
+        frc("FR_INV_N", pow(FIELD_ELEMENTS_PER_BLOB, R - 2, R) * FR_R_MONT % R),
+        f"DCONST uint32_t FR_E_MM2[8] = {{{_words(e, 8)}}};",
+        f"#define FR_E_MM2_BITS {e.bit_length()}"]) + "\n"
+
+
 def nvcc_path() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
@@ -125,13 +148,15 @@ def _source_text(name: str) -> bytes:
         return fh.read()
 
 
-def build_key(header: str, flags) -> str:
+def build_key(headers, flags) -> str:
     h = hashlib.sha256()
     for name in sorted(os.listdir(KERNEL_DIR)):
         if name.endswith((".cu", ".cuh")):
             h.update(name.encode())
             h.update(_source_text(name))
-    h.update(header.encode())
+    for name, text in sorted(headers.items()):
+        h.update(name.encode())
+        h.update(text.encode())
     h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
@@ -152,10 +177,11 @@ def build_all(host: bool = False) -> dict:
     """Compile every kernel source (in parallel) unless already built;
     returns {source name: library path}.  host=True builds the sources
     as C++ for the CPU instead (tests of the kernels' arithmetic)."""
-    header = constants_header()
+    headers = {"fp381_consts.h": constants_header(),
+               "fr255_consts.h": fr_constants_header()}
     flags = HOST_FLAGS if host else NVCC_FLAGS
     out_dir = os.path.join(BUILD_ROOT, ("host-" if host else "")
-                           + build_key(header, flags))
+                           + build_key(headers, flags))
     paths = {s: os.path.join(out_dir, f"lib{s}.so") for s in SOURCES}
     if all(os.path.exists(p) for p in paths.values()):
         BUILD_INFO.setdefault("seconds", 0.0)
@@ -163,8 +189,9 @@ def build_all(host: bool = False) -> dict:
         return paths
     compiler = host_compiler() if host else nvcc_path()
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "fp381_consts.h"), "w") as fh:
-        fh.write(header)
+    for name, text in headers.items():
+        with open(os.path.join(out_dir, name), "w") as fh:
+            fh.write(text)
     t0 = time.perf_counter()
     procs = {}
     for s in SOURCES:
@@ -209,6 +236,10 @@ SIGNATURES = {
                     ctypes.c_int),
     "miller": ([_P] * 4 + [_L, _P], ctypes.c_int),
     "finish": ([_P, _L, _P, _L, _P, _P], ctypes.c_int),
+    "fr_mul_count": ([], ctypes.c_ulonglong),         # host build only
+    "kzg_eval": ([_P] * 6 + [_L, _P], ctypes.c_int),
+    "kzg_msm": ([_P] * 7 + [_L, _P], ctypes.c_int),
+    "kzg_fold": ([_P] * 11 + [_L, _P], ctypes.c_int),
 }
 
 

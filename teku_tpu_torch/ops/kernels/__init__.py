@@ -1,13 +1,14 @@
 """Wrappers of the hand-written CUDA kernels, with their plain versions.
 
 Every wrapper takes canonical plain words (int32 bit patterns of 12
-little-endian 32-bit words per Fq element) and returns words or bool
-verdicts.  On a CUDA tensor it launches its kernel (built from this
-directory's sources by ops/_build.py) and adds one to its entry in
-``LAUNCHES``; on a CPU tensor it runs its plain PyTorch version, which
-converts to the 15 x 26-bit limbs of ops/limbs.py and calls the staged
-functions that mirror the JAX reference.  There is no fallback: a CUDA
-tensor never reaches the plain version through a wrapper.
+little-endian 32-bit words per Fq element, 8 per Fr element) and returns
+words or bool verdicts.  On a CUDA tensor it launches its kernel (built
+from this directory's sources by ops/_build.py) and adds one to its
+entry in ``LAUNCHES``; on a CPU tensor it runs its plain PyTorch
+version, which converts to the 15 x 26-bit limbs of ops/limbs.py (Fr:
+the 10 limbs of ops/modfield.py) and calls the staged functions that
+mirror the JAX reference.  There is no fallback: a CUDA tensor never
+reaches the plain version through a wrapper.
 
 A wrapper's internal ``_run_*`` takes the library to call as its first
 argument: the CUDA build, or (tests) the host C++ build of the same
@@ -29,7 +30,7 @@ from .. import _build
 
 LAUNCHES = {name: 0 for name in (
     "fp381_ops", "g1_validate", "prepare", "h2c", "scalars_group",
-    "scalars_msm", "miller", "finish")}
+    "scalars_msm", "miller", "finish", "kzg_eval", "kzg_fold", "kzg_msm")}
 
 
 def reset_launches() -> None:

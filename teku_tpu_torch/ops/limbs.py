@@ -17,7 +17,10 @@ lives at the bottom of this module:
   <-> port tensors (nested tuples of arrays allowed);
 - ``to_words`` / ``from_words``: Montgomery limbs <-> canonical plain
   12 x 32-bit words (int32 bit patterns), the kernels' interface;
-- ``bytes_to_words_np`` / ``int_to_words``: wire bytes / ints -> words.
+- ``bytes_to_words_np`` / ``int_to_words`` / ``ints_to_words``: wire
+  bytes / ints -> words; ``words_to_bits`` for scalars;
+- ``limbs_to_words`` / ``words_to_limbs``: the packing itself, for any
+  limb count (the Fr field of ops/modfield.py converts through it).
 """
 
 import numpy as np
@@ -336,16 +339,17 @@ def to_reference(t):
     return tree_map(lambda v: v.detach().cpu().numpy(), t)
 
 
-def _plain_limbs_to_words(c):
-    """Canonical plain limbs (..., L) int64 -> (..., NW) int64 in [0, 2^32)."""
+def limbs_to_words(c, n_words: int = NW):
+    """Canonical plain limbs (..., n) int64 -> (..., n_words) int64 in
+    [0, 2^32).  Any limb count of width W (Fq here, Fr in ops/modfield.py)."""
     cols = c.unbind(-1)
     words = []
-    for j in range(NW):
+    for j in range(n_words):
         bit = 32 * j
         acc = torch.zeros_like(cols[0])
         i, s = divmod(bit, W)
         shift = -s
-        while shift < 32 and i < L:
+        while shift < 32 and i < len(cols):
             acc = acc | ((cols[i] << shift) if shift >= 0
                          else (cols[i] >> -shift))
             i += 1
@@ -354,16 +358,16 @@ def _plain_limbs_to_words(c):
     return torch.stack(words, dim=-1)
 
 
-def _words_to_plain_limbs(w):
-    """(..., NW) int64 in [0, 2^32) -> plain limbs (..., L)."""
+def words_to_limbs(w, n_limbs: int = L):
+    """(..., n) int64 words in [0, 2^32) -> plain limbs (..., n_limbs)."""
     cols = w.unbind(-1)
     limbs = []
-    for i in range(L):
+    for i in range(n_limbs):
         bit = W * i
         acc = torch.zeros_like(cols[0])
         j, s = divmod(bit, 32)
         shift = -s
-        while shift < W and j < NW:
+        while shift < W and j < len(cols):
             acc = acc | ((cols[j] << shift) if shift >= 0
                          else (cols[j] >> -shift))
             j += 1
@@ -384,17 +388,17 @@ def words_u(w32):
 
 def to_words(a):
     """Montgomery limbs (lazy) -> canonical plain int32 words (..., NW)."""
-    return words_i32(_plain_limbs_to_words(canonical_plain(a)))
+    return words_i32(limbs_to_words(canonical_plain(a)))
 
 
 def from_words(w):
     """Canonical plain int32 words (..., NW) -> Montgomery limbs."""
-    return to_mont(_words_to_plain_limbs(words_u(w)))
+    return to_mont(words_to_limbs(words_u(w)))
 
 
 def plain_limbs_from_words(w):
     """int32 words -> plain (non-Montgomery) limbs, e.g. a wire x."""
-    return _words_to_plain_limbs(words_u(w))
+    return words_to_limbs(words_u(w))
 
 
 def int_to_words(x: int) -> np.ndarray:
@@ -403,13 +407,30 @@ def int_to_words(x: int) -> np.ndarray:
                     dtype=np.uint32).view(np.int32)
 
 
+def ints_to_words(vals, n_words: int) -> np.ndarray:
+    """Host: python ints -> (len, n_words) int32 words (one to_bytes each)."""
+    raw = b"".join(int(v).to_bytes(4 * n_words, "little") for v in vals)
+    return np.frombuffer(raw, dtype="<u4").view(np.int32).reshape(
+        len(vals), n_words).copy()
+
+
 def words_to_int(w) -> int:
     w = np.asarray(w.cpu() if torch.is_tensor(w) else w).astype(np.int64)
-    return sum((int(w[..., j]) & 0xFFFFFFFF) << (32 * j) for j in range(NW))
+    return sum((int(w[..., j]) & 0xFFFFFFFF) << (32 * j)
+               for j in range(w.shape[-1]))
+
+
+def words_to_bits(w, nbits: int):
+    """int32 words (..., n) of unsigned scalars -> (..., nbits) int64 bits,
+    MSB first (the low nbits bits)."""
+    u = words_u(w)
+    bits = (u[..., None] >> torch.arange(32, device=w.device)) & 1
+    bits = bits.reshape(w.shape[:-1] + (32 * w.shape[-1],))
+    return bits[..., :nbits].flip(-1)
 
 
 def bytes_to_words_np(b: np.ndarray) -> np.ndarray:
-    """Big-endian byte matrix (N, 48) -> (N, NW) int32 little-endian
-    words (vectorized wire parse)."""
+    """Big-endian byte matrix (N, 4 n) -> (N, n) int32 little-endian
+    words (vectorized wire parse: 48-byte Fq, 32-byte Fr)."""
     le = np.ascontiguousarray(b[:, ::-1]).astype(np.uint8)
     return le.view("<u4").view(np.int32).copy()

@@ -16,10 +16,12 @@ multiplications.  This path replaces the per-lane 64-bit ladder with:
    per lane.
 
 Path selection (``set_path`` / ``force``, process-global, resolved per
-dispatch by ``explain``): ``ladder``, ``pippenger``, or ``auto`` --
-pippenger when the dispatch device is a CUDA card, lanes >=
-AUTO_MIN_LANES and lanes / rows >= AUTO_MIN_DUP (the reference's
-defaults); the ladder otherwise.  The path reads no environment.
+dispatch by ``explain``): ``ladder``, ``pippenger``, or ``auto``.  As in
+the reference, auto picks pippenger only on a device its crossover was
+tuned for (``TUNED_DEVICE_TYPES``), with lanes >= AUTO_MIN_LANES and
+lanes / rows >= AUTO_MIN_DUP; the reference tuned it on a TPU, so on the
+CPU and on CUDA cards auto resolves to the ladder.  The path reads no
+environment.
 
 The functions below keep the reference's formulas and order on the
 15 x 26-bit limbs of ops/limbs.py, so their outputs equal the JAX
@@ -45,11 +47,14 @@ LAMBDA = (-(X_ABS * X_ABS)) % R
 
 WINDOW = 4            # digit width w: 2^w - 1 = 15 buckets per window
 G2_SEG = 32           # G2 columns per bucket-accumulation segment
-# auto's crossover: the reference's defaults, tuned on the TPU and not
-# measured on a GPU; on an H100 they send workload A of chip_smoke.py
-# (256 lanes, duplication 32) to the slower path (PERF.md section 5)
+# auto's crossover: the reference's defaults, tuned on the TPU.  They wait
+# for a crossover measured on an H100 (a lanes x duplication sweep of
+# scalars_msm against scalars_group); until then no device type of the
+# port is listed as tuned, so auto takes the ladder everywhere, as the
+# reference does off a TPU
 AUTO_MIN_LANES = 32
 AUTO_MIN_DUP = 2.0
+TUNED_DEVICE_TYPES: tuple = ()
 
 _state = {"path": "auto"}
 
@@ -70,17 +75,20 @@ def get_path() -> str:
 def explain(lanes=None, rows=None, device=None):
     """(path, why) for one dispatch: the effective path ('ladder' or
     'pippenger') and the decision context -- configured path, lanes,
-    rows, whether the device is a CUDA card, thresholds, the rule.
-    ``why`` mirrors the record of the reference's explain (its dispatch
-    ledger stores it); the provider itself only calls resolve()."""
+    rows, whether the crossover was tuned for the dispatch device,
+    thresholds, the rule.  ``why`` mirrors the record of the reference's
+    explain (its dispatch ledger stores it); the provider itself only
+    calls resolve()."""
     why = {"configured": get_path(), "lanes": lanes, "rows": rows}
     configured = why["configured"]
     if configured in ("ladder", "pippenger"):
         why["rule"] = "explicitly configured"
         return configured, why
-    why["cuda"] = device is not None and torch.device(device).type == "cuda"
-    if not why["cuda"]:
-        why["rule"] = "auto: dispatch device is not a CUDA card"
+    why["device"] = None if device is None else torch.device(device).type
+    why["tuned"] = why["device"] in TUNED_DEVICE_TYPES
+    if not why["tuned"]:
+        why["rule"] = ("auto: the crossover was tuned on a TPU, not on the "
+                       "dispatch device")
         return "ladder", why
     if not lanes or not rows:
         why["rule"] = "auto: no shape context"

@@ -108,6 +108,15 @@ def test_port_imports_neither_jax_nor_the_reference():
     names = {str(p.relative_to(root)) for p in files}
     assert {"teku_tpu_torch/ops/msm.py",
             "teku_tpu_torch/ops/kernels/msm.py"} <= names
+    # the KZG slice: its modules are checked too
+    assert {"teku_tpu_torch/crypto/kzg.py", "teku_tpu_torch/ops/kzg.py",
+            "teku_tpu_torch/ops/modfield.py",
+            "teku_tpu_torch/ops/kernels/kzg.py"} <= names
+    # TorchKzg never hands a batch to the facade's host path
+    tree = ast.parse((root / "teku_tpu_torch/ops/kzg.py").read_text())
+    assert not [n for n in ast.walk(tree) if getattr(n, "id", None) ==
+                "BackendUnavailable" or getattr(n, "name", None) ==
+                "BackendUnavailable"]
     msm_src = (root / "teku_tpu_torch/ops/msm.py").read_text()
     assert not any(isinstance(node, (ast.Import, ast.ImportFrom)) and any(
         a.name == "os" for a in node.names) for node in ast.walk(
