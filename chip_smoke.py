@@ -39,16 +39,22 @@ Phases, each fatal on failure (exit code 1, no result line):
               proof; the zero blob's infinity commitment.  Counters are
               zeroed before and read after: kzg_eval, kzg_fold, kzg_msm
               and g1_validate must have launched.  Then the warm 6- and
-              9-blob batches, 7 repeats each, interleaved.
+              9-blob batches, 7 repeats each, interleaved, and 7 more
+              of each with the host clock around every stage of the
+              batch (G1 cache, challenges, range check, kzg_eval and
+              its packing, multipliers, kzg_fold and its packing).
 5. timing  -- each kernel at the main path's shapes (A's for the BLS
               kernels, finish on both the 1-lane wsig of scalars_msm and
               the 256-lane wsig of scalars_group; the KZG path's for the
               KZG kernels), CUDA events, held against its plain version
               on the same inputs and timed there, and its bound: the
-              int32 multiply-adds it executes on these inputs (counted by
-              the host C++ build of the same source: 576 per Fq and 256
-              per Fr Montgomery product) over the card's IMAD rate, or
-              its bytes over the memory rate, whichever is larger.
+              int32 multiply-adds of the work over the card's IMAD rate
+              (576 per Fq and 256 per Fr Montgomery product), or its
+              bytes over the memory rate, whichever is larger.  The work
+              of a BLS kernel is the products the host C++ build of the
+              same source executes on these inputs; that of a KZG
+              function the least its real inputs need (kzg_least_work),
+              with the kernel's own count printed beside it.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers (a row per kernel and path it was timed on -- ladder, pippenger,
@@ -58,6 +64,7 @@ blobs from numpy, both with --seed (default 2026).
 """
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -575,8 +582,91 @@ def phase_kzg(dev, seed, recorder):
     for n, times in warm.items():
         log(f"[kzg] warm {n}-blob batch, {WARM_REPS} repeats: "
             f"{spread(times)}")
+    for n in warm:
+        stages = StageTimer(backend)
+        try:
+            for _ in range(WARM_REPS):
+                with stages.batch():
+                    HK.verify_blob_kzg_proof_batch(blobs[:n], cms[:n],
+                                                   prs[:n])
+        finally:
+            stages.undo()
+        log(f"[kzg] stages of the warm {n}-blob batch, host clock, median "
+            f"of {WARM_REPS} (ms): {json.dumps(stages.medians())}")
     HK.set_backend(None)
     return launches
+
+
+class StageTimer:
+    """Host-clock time of each stage of TorchKzg.verify_blob_kzg_proof_batch,
+    taken by wrapping the functions it calls.  The kernel wrappers
+    synchronize the card before and after, so each kernel's time is its
+    own and the rest of a stage is host work (packing, copies, readback)."""
+
+    TIMED = ("_resolve_g1", "compute_challenge", "blob_bytes_to_limbs",
+             "limbs_lt_modulus", "_evaluate", "kzg_eval", "_r_multipliers",
+             "_fold_check", "kzg_fold")
+
+    def __init__(self, backend):
+        import teku_tpu_torch.ops.kzg as OK
+        from teku_tpu_torch.ops.kernels import kzg as KK
+        self.t, self.rows, self._undo = {}, [], []
+        owner = {"compute_challenge": OK, "blob_bytes_to_limbs": OK,
+                 "limbs_lt_modulus": OK, "kzg_eval": KK, "kzg_fold": KK}
+        for attr in self.TIMED:
+            self._wrap(owner.get(attr, backend), attr,
+                       sync=attr.startswith("kzg_"))
+
+    def _wrap(self, obj, attr, sync):
+        import torch
+        orig = getattr(obj, attr)
+        self._undo.append((obj, attr, orig, attr in vars(obj)))
+
+        def wrapper(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            self.t[attr] = self.t.get(attr, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(obj, attr, wrapper)
+
+    def undo(self):
+        for obj, attr, orig, own in reversed(self._undo):
+            if own:
+                setattr(obj, attr, orig)
+            else:
+                delattr(obj, attr)
+
+    @contextlib.contextmanager
+    def batch(self):
+        import torch
+        self.t = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        t = {k: v * 1e3 for k, v in self.t.items()}
+        total = (time.perf_counter() - t0) * 1e3
+        g = lambda k: t.get(k, 0.0)                      # noqa: E731
+        check = g("blob_bytes_to_limbs") + g("limbs_lt_modulus")
+        top = (g("_resolve_g1") + g("compute_challenge") + g("_evaluate")
+               + g("_r_multipliers") + g("_fold_check"))
+        self.rows.append({
+            "batch": total, "g1 cache": g("_resolve_g1"),
+            "challenges (SHA-256)": g("compute_challenge"),
+            "range check": check, "kzg_eval": g("kzg_eval"),
+            "eval packing and copies": g("_evaluate") - check - g("kzg_eval"),
+            "multipliers (SHA-256)": g("_r_multipliers"),
+            "kzg_fold": g("kzg_fold"),
+            "fold packing and copies": g("_fold_check") - g("kzg_fold"),
+            "rest": total - top})
+
+    def medians(self):
+        return {k: round(sorted(r[k] for r in self.rows)[len(self.rows) // 2],
+                         3) for k in self.rows[0]}
 
 
 class Recorder:
@@ -645,15 +735,103 @@ GROUP_PATH = {"A/auto": "ladder", "A/pippenger": "pippenger", "kzg": "kzg"}
 KZG_REPLACES = {"g1_validate": "teku_tpu/ops/kzg.py:142"}
 
 
+# G1 point operations in Fq products (fp381.cuh counts squares as
+# products): dbl-2009-l, add-2007-bl, and madd-2007-bl for an affine input
+G1_DBL, G1_ADD, G1_MADD = 7, 16, 11
+SCALAR_BITS = 255
+
+
+def pow_chain(modulus: int) -> int:
+    """Products of a square-and-multiply inverse x^(m - 2)."""
+    e = modulus - 2
+    return e.bit_length() - 1 + bin(e).count("1") - 1
+
+
+def bucket_msm_products(scalars) -> int:
+    """Fq products of the cheapest bucket (Pippenger) MSM over these
+    scalars' points (affine inputs), the window width c chosen for them:
+    per window one mixed add per nonzero digit and 2 (2^c - 1) adds for
+    the bucket sums; c doublings and one add per window to combine."""
+    import numpy as np
+    words = scalars.cpu().numpy().astype(np.uint32).view(np.uint8)
+    bits = np.unpackbits(words.reshape(-1, 32), axis=1,
+                         bitorder="little")[:, :SCALAR_BITS]
+    best = None
+    for c in range(1, 17):
+        nwin = -(-SCALAR_BITS // c)
+        padded = np.zeros((bits.shape[0], nwin * c), dtype=np.uint8)
+        padded[:, :SCALAR_BITS] = bits
+        nonzero = int(padded.reshape(-1, nwin, c).any(axis=2).sum())
+        cost = (nonzero * G1_MADD + nwin * 2 * ((1 << c) - 1) * G1_ADD
+                + (nwin - 1) * (c * G1_DBL + G1_ADD))
+        best = cost if best is None else min(best, cost)
+    return best
+
+
+def kzg_least_work(name, args, pairing_products):
+    """(Fq products, Fr products, bytes) that a KZG function needs on this
+    run's real inputs -- padding blobs and lanes, absent points and zero
+    scalars need nothing: eval, per blob that misses every root, one
+    product for p_i w_i, three for one batched inversion and one for the
+    term per point, plus one inverse and z^n; fold and msm, the cheapest
+    bucket MSM of the used points (fold: each group's), one inverse to
+    affine per sum, and for fold two Miller loops and one final
+    exponentiation (`pairing_products`).  The bytes are each real input
+    read once and each output written once."""
+    import torch
+    from teku_tpu_torch.crypto.bls.constants import P, R
+    to_affine = pow_chain(P) + 4
+    if name == "kzg_eval":
+        poly, z, roots = args
+        n = roots.shape[0]
+        real = [b for b in range(z.shape[0]) if bool(z[b].any())]
+        misses = sum(1 for b in real
+                     if not bool((roots == z[b]).all(dim=1).any()))
+        fr = misses * (5 * n + pow_chain(R) + n.bit_length() + 1)
+        return 0, fr, len(real) * (n * 32 + 64) + n * 32
+    if name == "kzg_fold":
+        xs, ys, inf, valid, group_b, scalars, g2 = args
+        used = valid & ~inf & scalars.ne(0).any(dim=1)
+        fq = pairing_products + 2 * to_affine
+        for grp in (used & ~group_b, used & group_b):
+            fq += bucket_msm_products(scalars[grp])
+        return fq, 0, int(used.sum()) * (96 + 32 + 3) + 384 + 1 + 194
+    xs, ys, present, scalars = args                       # kzg_msm
+    used = present & scalars.ne(0).any(dim=1)
+    return (bucket_msm_products(scalars[used]) + to_affine, 0,
+            int(used.sum()) * (96 + 32 + 1) + 97)
+
+
+def host_products(stem, name, args):
+    """(Fq, Fr) products the host C++ build of the kernel executes."""
+    from teku_tpu_torch.ops import _build
+    host_lib = _build.library(stem, host=True)
+    fr_count = getattr(host_lib, "fr_mul_count", lambda: 0)
+    before = (host_lib.fp381_mul_count(), fr_count())
+    kernel_runner(host=True)(name, *[a.cpu() for a in args])
+    return (host_lib.fp381_mul_count() - before[0],
+            fr_count() - before[1])
+
+
 def phase_timing(recorder, launches, dev):
     import torch
-    from teku_tpu_torch.ops import _build
     props = torch.cuda.get_device_properties(0)
     clock_mhz = float(smi("clocks.max.sm").split()[0])
     imad_rate = props.multi_processor_count * IMAD_PER_SM_CLOCK * clock_mhz * 1e6
     log(f"[timing] {props.multi_processor_count} SMs at max {clock_mhz:.0f} "
         f"MHz: {imad_rate / 1e12:.2f} T IMAD/s; HBM {HBM_BYTES_PER_S / 1e12} TB/s")
-    kr, pr, hr = kernel_runner(), plain_runner(), kernel_runner(host=True)
+    kr, pr = kernel_runner(), plain_runner()
+    # two Miller loops and one final exponentiation, as pairing.cuh
+    # computes them: pairing.cu's miller on one lane plus its finish on one
+    # row and one lane (one more Miller loop and the final exponentiation)
+    agg, hm, _ = recorder.args[("A/pippenger", "miller")]
+    ml, wsig = recorder.args[("A/pippenger", "finish")]
+    pairing_products = (
+        host_products("pairing", "miller", (agg[:1], hm[:1],
+                                            torch.ones(1, dtype=torch.bool)))[0]
+        + host_products("pairing", "finish", (ml[:1], wsig[:1]))[0])
+    log(f"[timing] 2 Miller loops + 1 final exponentiation: "
+        f"{pairing_products} Fq products (host build of pairing.cu)")
     rows = []
     for name, group in TIMED:
         stem, replaces = KERNELS[name]
@@ -666,20 +844,28 @@ def phase_timing(recorder, launches, dev):
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = max(max_err(a, b) for a, b in zip(kout, pout))
         ms = cuda_ms(lambda: kr(name, *args), reps=3)
-        host_lib = _build.library(stem, host=True)
-        fr_count = getattr(host_lib, "fr_mul_count", lambda: 0)
-        before = (host_lib.fp381_mul_count(), fr_count())
-        hr(name, *[a.cpu() for a in args])
-        mads = ((host_lib.fp381_mul_count() - before[0]) * MADS_PER_MONT_MUL
-                + (fr_count() - before[1]) * MADS_PER_FR_MUL)
-        ops_ms = mads / imad_rate * 1e3
-        bytes_ms = (nbytes(args) + nbytes(kout)) / HBM_BYTES_PER_S * 1e3
+        fq, fr = host_products(stem, name, args)
+        executed_ms = ((fq * MADS_PER_MONT_MUL + fr * MADS_PER_FR_MUL)
+                       / imad_rate * 1e3)
+        moved = nbytes(args) + nbytes(kout)
+        if name.startswith("kzg_"):
+            fq, fr, moved = kzg_least_work(name, args, pairing_products)
+        elif group == "kzg":
+            # g1_validate: the same work on every lane; the bucket's
+            # padding lanes (x = 0) are not the path's points
+            real = int(args[0].ne(0).any(dim=1).sum())
+            fq, fr = fq * real // args[0].shape[0], 0
+            moved = moved * real // args[0].shape[0]
+        ops_ms = ((fq * MADS_PER_MONT_MUL + fr * MADS_PER_FR_MUL)
+                  / imad_rate * 1e3)
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         shapes = ", ".join("x".join(str(d) for d in a.shape) for a in args
                            if torch.is_tensor(a))
         log(f"[timing] {name:14s} {group:11s} in ({shapes}): max |kernel "
             f"- plain| = {err} (tolerance 0); kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.1f} ms, {mads:.3e} IMAD -> bound "
-            f"{max(ops_ms, bytes_ms):.4f} ms")
+            f"{plain_ms:.1f} ms; bound {max(ops_ms, bytes_ms):.4f} ms "
+            f"({fq} Fq + {fr} Fr products, {moved} bytes); the kernel's "
+            f"own products {executed_ms:.4f} ms")
         rows.append({"name": name, "path": GROUP_PATH[group], "route": "cuda",
                      "source": f"teku_tpu_torch/ops/kernels/{stem}.cu",
                      "replaces": (KZG_REPLACES.get(name, replaces)
@@ -689,7 +875,7 @@ def phase_timing(recorder, launches, dev):
                      "bound_ms": max(ops_ms, bytes_ms),
                      "bound_by": "operations" if ops_ms >= bytes_ms
                      else "bytes",
-                     "library_ms": None})
+                     "library_ms": None, "executed_ops_ms": executed_ms})
         if err != 0:
             fail(f"{name} disagrees with its plain version at {group}'s "
                  f"shapes")

@@ -29,7 +29,6 @@ from ..crypto.bls import fields as F
 from ..crypto.bls.constants import (B_G1, B_G2, ISO3_X_DEN, ISO3_X_NUM,
                                     ISO3_Y_DEN, ISO3_Y_NUM, P, R, SSWU_A2,
                                     SSWU_B2, SSWU_Z2, X_ABS)
-from ..crypto.kzg import FIELD_ELEMENTS_PER_BLOB
 
 KERNEL_DIR = os.path.join(os.path.dirname(__file__), "kernels")
 BUILD_ROOT = os.path.join(os.path.dirname(__file__), "_build")
@@ -130,7 +129,7 @@ def fr_constants_header() -> str:
         frc("FR_M", R),
         frc("FR_ONE", FR_R_MONT),
         frc("FR_R2", FR_R_MONT * FR_R_MONT % R),
-        frc("FR_INV_N", pow(FIELD_ELEMENTS_PER_BLOB, R - 2, R) * FR_R_MONT % R),
+        frc("FR_INV_2", (R + 1) // 2 * FR_R_MONT % R),
         f"DCONST uint32_t FR_E_MM2[8] = {{{_words(e, 8)}}};",
         f"#define FR_E_MM2_BITS {e.bit_length()}"]) + "\n"
 
@@ -237,7 +236,7 @@ SIGNATURES = {
     "miller": ([_P] * 4 + [_L, _P], ctypes.c_int),
     "finish": ([_P, _L, _P, _L, _P, _P], ctypes.c_int),
     "fr_mul_count": ([], ctypes.c_ulonglong),         # host build only
-    "kzg_eval": ([_P] * 6 + [_L, _P], ctypes.c_int),
+    "kzg_eval": ([_P] * 6 + [_L, _L, _P], ctypes.c_int),
     "kzg_msm": ([_P] * 7 + [_L, _P], ctypes.c_int),
     "kzg_fold": ([_P] * 11 + [_L, _P], ctypes.c_int),
 }

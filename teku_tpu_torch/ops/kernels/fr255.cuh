@@ -21,7 +21,7 @@
 struct fr { uint32_t v[8]; };
 
 // Generated by teku_tpu_torch/ops/_build.py: FR_M, FR_N0, FR_ONE, FR_R2,
-// FR_E_MM2 (r - 2) and FR_INV_N (1/4096, Montgomery form).
+// FR_INV_2 (1/2, Montgomery form) and FR_E_MM2 (r - 2).
 #include "fr255_consts.h"
 
 #ifdef __CUDACC__

@@ -2,15 +2,15 @@
 //
 // kzg_eval replaces eval_blob_kernel (teku_tpu/ops/kzg.py:112): the
 // barycentric p(z) = (z^n - 1)/n * sum_i p_i w_i / (z - w_i) of B blobs
-// of n = 4096 Fr evaluations.  The TPU program inverts all B * 4096
-// denominators in one batch; here a grid of B * EVAL_T threads strides
-// the points (EVAL_T per blob, EVAL_PER points each), and each thread
-// inverts its own EVAL_PER denominators by Montgomery's trick (one Fermat
-// inverse), zero denominators mapping to zero as in the reference's
-// inv_many.  A second pass sums each blob's EVAL_T partial sums on one
-// thread, multiplies by (z^n - 1)/n, and selects p_i when z hit the root
-// w_i.  Only the canonical y leaves, so the sum order does not show.  The
-// roots come in as a tensor built on the host.
+// of n Fr evaluations (n a power of two, the roots' count).  The TPU
+// program inverts all B * n denominators in one batch; here a grid of
+// B * n / EVAL_PER threads strides the points (EVAL_PER per thread), and
+// each thread inverts its own EVAL_PER denominators by Montgomery's trick
+// (one Fermat inverse), zero denominators mapping to zero as in the
+// reference's inv_many.  A second pass sums each blob's partial sums on
+// one thread, multiplies by (z^n - 1)/n, and selects p_i when z hit the
+// root w_i.  Only the canonical y leaves, so the sum order does not show.
+// The roots come in as a tensor built on the host.
 //
 // kzg_msm replaces msm_kernel (kzg.py:180): sum_i [s_i]P_i over the 4096
 // Lagrange points (absent points are infinity) by one 255-bit fixed-window
@@ -26,27 +26,25 @@
 //
 // Bound: 32-bit multiply-adds.  Per ladder 252 doublings and 78 adds of
 // G1; per fold two Miller loops and one final exponentiation, serial.
-// EVAL_N is the blob width of crypto/kzg.py (the wrapper checks it).
 
 #include "fp381.cuh"
 #include "fr255.cuh"
 #include "pairing.cuh"
 
-#define EVAL_N 4096
-#define EVAL_T 256                  // partial sums (threads) per blob
-#define EVAL_PER (EVAL_N / EVAL_T)  // points per thread
+#define EVAL_PER 16                 // points per thread: n / EVAL_PER partial sums per blob
 
 DEVNI void eval_part(long t, const int32_t* poly, const int32_t* z, const int32_t* roots,
-                     fr* part, int32_t* hit) {
-    long b = t / EVAL_T;
-    int k = (int)(t % EVAL_T);
+                     fr* part, int32_t* hit, long n) {
+    long nt = n / EVAL_PER;
+    long b = t / nt;
+    long k = t % nt;
     fr zm = fr_load(z + 8 * b);
     fr num[EVAL_PER], den[EVAL_PER], pre[EVAL_PER];
     fr acc = FR_ONE;
     for (int j = 0; j < EVAL_PER; j++) {
-        long i = k + (long)j * EVAL_T;
+        long i = k + j * nt;
         fr w = fr_load(roots + 8 * i);
-        num[j] = fr_mul(fr_load(poly + 8 * (b * EVAL_N + i)), w);
+        num[j] = fr_mul(fr_load(poly + 8 * (b * n + i)), w);
         den[j] = fr_sub(zm, w);
         if (fr_is_zero(den[j])) {       // z == w_i: this term is 0
             hit[b] = (int32_t)i;
@@ -66,36 +64,42 @@ DEVNI void eval_part(long t, const int32_t* poly, const int32_t* z, const int32_
 }
 
 DEVNI void eval_final(long b, const int32_t* poly, const int32_t* z, const fr* part,
-                      const int32_t* hit, int32_t* y) {
+                      const int32_t* hit, int32_t* y, long n) {
+    long nt = n / EVAL_PER;
     fr sum = fr_zero();
-    for (int k = 0; k < EVAL_T; k++) sum = fr_add(sum, part[b * EVAL_T + k]);
-    fr zn = fr_load(z + 8 * b);
-    for (int i = 0; i < 12; i++) zn = fr_sqr(zn);      // z^4096
-    fr out = fr_mul(sum, fr_mul(fr_sub(zn, FR_ONE), FR_INV_N));
-    if (hit[b] >= 0) out = fr_load(poly + 8 * (b * EVAL_N + hit[b]));
+    for (long k = 0; k < nt; k++) sum = fr_add(sum, part[b * nt + k]);
+    fr zn = fr_load(z + 8 * b), inv_n = FR_ONE;
+    for (long m = 1; m < n; m <<= 1) {                     // z^n and 1/n
+        zn = fr_sqr(zn);
+        inv_n = fr_mul(inv_n, FR_INV_2);
+    }
+    fr out = fr_mul(sum, fr_mul(fr_sub(zn, FR_ONE), inv_n));
+    if (hit[b] >= 0) out = fr_load(poly + 8 * (b * n + hit[b]));
     fr_store(y + 8 * b, out);
 }
 
 #ifdef __CUDACC__
-__global__ void eval_part_kernel(long n, const int32_t* poly, const int32_t* z,
-                                 const int32_t* roots, fr* part, int32_t* hit) {
+__global__ void eval_part_kernel(long m, const int32_t* poly, const int32_t* z,
+                                 const int32_t* roots, fr* part, int32_t* hit, long n) {
     long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t < n) eval_part(t, poly, z, roots, part, hit);
+    if (t < m) eval_part(t, poly, z, roots, part, hit, n);
 }
 
-__global__ void eval_final_kernel(long n, const int32_t* poly, const int32_t* z,
-                                  const fr* part, const int32_t* hit, int32_t* y) {
+__global__ void eval_final_kernel(long m, const int32_t* poly, const int32_t* z,
+                                  const fr* part, const int32_t* hit, int32_t* y, long n) {
     long b = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (b < n) eval_final(b, poly, z, part, hit, y);
+    if (b < m) eval_final(b, poly, z, part, hit, y, n);
 }
 #endif
 
-// poly (B, 4096, 8), z (B, 8), roots (4096, 8): canonical plain words;
-// scratch part (B * EVAL_T Fr), hit (B,) preset to -1; y (B, 8) out
+// poly (B, n, 8), z (B, 8), roots (n, 8): canonical plain words, n a
+// power of two >= EVAL_PER; scratch part (B * n / EVAL_PER Fr), hit (B,)
+// preset to -1; y (B, 8) out
 extern "C" int kzg_eval(const int32_t* poly, const int32_t* z, const int32_t* roots,
-                        void* part, int32_t* hit, int32_t* y, long nblobs, void* stream) {
-    LAUNCH(nblobs * EVAL_T, eval_part, poly, z, roots, (fr*)part, hit);
-    LAUNCH(nblobs, eval_final, poly, z, (const fr*)part, hit, y);
+                        void* part, int32_t* hit, int32_t* y, long nblobs, long n,
+                        void* stream) {
+    LAUNCH(nblobs * (n / EVAL_PER), eval_part, poly, z, roots, (fr*)part, hit, n);
+    LAUNCH(nblobs, eval_final, poly, z, (const fr*)part, hit, y, n);
     return 0;
 }
 

@@ -12,7 +12,6 @@ the wrappers' plain versions call on the CPU.
 
 import torch
 
-from ...crypto.kzg import FIELD_ELEMENTS_PER_BLOB
 from .. import _build
 from .. import limbs as fp
 from .. import pairing as PR
@@ -21,10 +20,8 @@ from .. import verify as V
 from ..modfield import FR
 from . import LAUNCHES, LONG, check_tensor, lib, on_card, ptr
 
-N = FIELD_ELEMENTS_PER_BLOB   # kzg.cu: EVAL_N
-EVAL_T = 256                 # kzg.cu: partial sums per blob
+EVAL_PER = 16                # kzg.cu: points per thread
 SCALAR_BITS = 256            # scalars cross as 8 words; Fr values < 2^255
-_INV_N_MONT = FR.int_to_mont(pow(N, FR.M - 2, FR.M))
 
 
 # --------------------------------------------------------------------------
@@ -32,17 +29,19 @@ _INV_N_MONT = FR.int_to_mont(pow(N, FR.M - 2, FR.M))
 # --------------------------------------------------------------------------
 
 def eval_blob(poly_plain, z_mont, roots_mont):
-    """Barycentric p(z) for B blobs: poly_plain (B, 4096, L) plain Fr
-    limbs, z_mont (B, L) and roots_mont (4096, L) Montgomery.  Canonical
-    plain limbs of y = p(z), (B, L); z == w_i selects p_i."""
+    """Barycentric p(z) for B blobs: poly_plain (B, n, L) plain Fr limbs,
+    z_mont (B, L) and roots_mont (n, L) Montgomery, n the roots' count.
+    Canonical plain limbs of y = p(z), (B, L); z == w_i selects p_i."""
+    n = roots_mont.shape[0]
+    inv_n = FR.int_to_mont(pow(n, FR.M - 2, FR.M))
     poly = FR.to_mont(poly_plain)
     denom = z_mont[:, None, :] - roots_mont[None]
     invs = FR.inv_many(denom)
     terms = FR.mont_mul(FR.mont_mul(poly, roots_mont[None]), invs)
     acc = FR.compress(terms.sum(dim=1))
-    zn = FR.pow_static(z_mont, N)
+    zn = FR.pow_static(z_mont, n)
     one = fp.const(FR.ONE_MONT, z_mont.device)
-    factor = FR.mont_mul(zn - one, fp.const(_INV_N_MONT, z_mont.device))
+    factor = FR.mont_mul(zn - one, fp.const(inv_n, z_mont.device))
     y = FR.mont_mul(acc, factor)
     hit = FR.is_zero(denom)
     special = FR.compress(torch.where(hit[..., None], poly,
@@ -95,13 +94,17 @@ def msm(xs, ys, present, bits):
 # --------------------------------------------------------------------------
 
 def kzg_eval(poly, z, roots):
-    """poly (B, 4096, 8), z (B, 8), roots (4096, 8): canonical plain Fr
-    words (int32 bit patterns).  Returns y = p(z), (B, 8) words."""
-    b = poly.shape[0]
+    """poly (B, n, 8), z (B, 8), roots (n, 8): canonical plain Fr words
+    (int32 bit patterns), n a power of two >= 16.  Returns y = p(z),
+    (B, 8) words."""
+    b, n = poly.shape[0], roots.shape[0]
     dev = poly.device
-    check_tensor(poly, "poly", torch.int32, (b, N, 8), dev)
+    if n < EVAL_PER or n & (n - 1):
+        raise ValueError(f"kzg_eval needs a power-of-two n >= {EVAL_PER}, "
+                         f"got {n}")
+    check_tensor(poly, "poly", torch.int32, (b, n, 8), dev)
     check_tensor(z, "z", torch.int32, (b, 8), dev)
-    check_tensor(roots, "roots", torch.int32, (N, 8), dev)
+    check_tensor(roots, "roots", torch.int32, (n, 8), dev)
     if not on_card(poly):
         return kzg_eval_plain(poly, z, roots)
     LAUNCHES["kzg_eval"] += 1
@@ -109,13 +112,14 @@ def kzg_eval(poly, z, roots):
 
 
 def _run_kzg_eval(library, poly, z, roots):
-    b = poly.shape[0]
+    b, n = poly.shape[0], roots.shape[0]
     dev = poly.device
-    part = torch.empty(b * EVAL_T * 8, dtype=torch.int32, device=dev)
+    part = torch.empty(b * (n // EVAL_PER) * 8, dtype=torch.int32,
+                       device=dev)
     hit = torch.full((b,), -1, dtype=torch.int32, device=dev)
     y = torch.empty((b, 8), dtype=torch.int32, device=dev)
     _build.check(library.kzg_eval(ptr(poly), ptr(z), ptr(roots), ptr(part),
-                                  ptr(hit), ptr(y), LONG(b),
+                                  ptr(hit), ptr(y), LONG(b), LONG(n),
                                   _build.stream_ptr(poly)), "kzg_eval")
     return y
 

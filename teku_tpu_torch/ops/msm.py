@@ -16,11 +16,10 @@ multiplications.  This path replaces the per-lane 64-bit ladder with:
    per lane.
 
 Path selection (``set_path`` / ``force``, process-global, resolved per
-dispatch by ``explain``): ``ladder``, ``pippenger``, or ``auto``.  As in
-the reference, auto picks pippenger only on a device its crossover was
-tuned for (``TUNED_DEVICE_TYPES``), with lanes >= AUTO_MIN_LANES and
-lanes / rows >= AUTO_MIN_DUP; the reference tuned it on a TPU, so on the
-CPU and on CUDA cards auto resolves to the ladder.  The path reads no
+dispatch by ``explain``): ``ladder``, ``pippenger``, or ``auto``.  The
+reference's auto picks pippenger only on a TPU, the device its crossover
+was tuned for; the port runs on no such device, so auto resolves to the
+ladder on the CPU and on CUDA cards alike.  The path reads no
 environment.
 
 The functions below keep the reference's formulas and order on the
@@ -47,14 +46,13 @@ LAMBDA = (-(X_ABS * X_ABS)) % R
 
 WINDOW = 4            # digit width w: 2^w - 1 = 15 buckets per window
 G2_SEG = 32           # G2 columns per bucket-accumulation segment
-# auto's crossover: the reference's defaults, tuned on the TPU.  They wait
-# for a crossover measured on an H100 (a lanes x duplication sweep of
-# scalars_msm against scalars_group); until then no device type of the
-# port is listed as tuned, so auto takes the ladder everywhere, as the
-# reference does off a TPU
+# the reference's auto crossover (lanes >= AUTO_MIN_LANES and lanes / rows
+# >= AUTO_MIN_DUP), tuned on the TPU.  Unused until a crossover measured
+# on an H100 (a lanes x duplication sweep of scalars_msm against
+# scalars_group) gives auto a rule for the card; until then auto takes
+# the ladder everywhere, as the reference does off a TPU
 AUTO_MIN_LANES = 32
 AUTO_MIN_DUP = 2.0
-TUNED_DEVICE_TYPES: tuple = ()
 
 _state = {"path": "auto"}
 
@@ -75,33 +73,17 @@ def get_path() -> str:
 def explain(lanes=None, rows=None, device=None):
     """(path, why) for one dispatch: the effective path ('ladder' or
     'pippenger') and the decision context -- configured path, lanes,
-    rows, whether the crossover was tuned for the dispatch device,
-    thresholds, the rule.  ``why`` mirrors the record of the reference's
-    explain (its dispatch ledger stores it); the provider itself only
-    calls resolve()."""
+    rows, dispatch device, the rule.  ``why`` mirrors the record of the
+    reference's explain (its dispatch ledger stores it); the provider
+    itself only calls resolve()."""
     why = {"configured": get_path(), "lanes": lanes, "rows": rows}
     configured = why["configured"]
     if configured in ("ladder", "pippenger"):
         why["rule"] = "explicitly configured"
         return configured, why
     why["device"] = None if device is None else torch.device(device).type
-    why["tuned"] = why["device"] in TUNED_DEVICE_TYPES
-    if not why["tuned"]:
-        why["rule"] = ("auto: the crossover was tuned on a TPU, not on the "
-                       "dispatch device")
-        return "ladder", why
-    if not lanes or not rows:
-        why["rule"] = "auto: no shape context"
-        return "ladder", why
-    why["auto_min_lanes"] = AUTO_MIN_LANES
-    why["auto_min_dup"] = AUTO_MIN_DUP
-    # the exact ratio decides; the record keeps it rounded
-    dup = lanes / rows
-    why["dup"] = round(dup, 3)
-    if lanes >= AUTO_MIN_LANES and dup >= AUTO_MIN_DUP:
-        why["rule"] = "auto: lanes and duplication clear the crossover"
-        return "pippenger", why
-    why["rule"] = "auto: below the lanes/duplication crossover"
+    why["tpu"] = False
+    why["rule"] = "auto: dispatch device is not a TPU"
     return "ladder", why
 
 

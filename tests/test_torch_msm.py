@@ -118,8 +118,8 @@ def test_host_helpers_and_path_rule_match_reference(monkeypatch):
     for a, b in zip(k1[:8], k2[:8]):
         assert M.effective_scalar(a, b) == RM.effective_scalar(a, b)
     # the path rule: explicit paths; auto off the device the crossover was
-    # tuned for (a TPU) -> ladder, on cpu and cuda alike; on a tuned device
-    # the reference's thresholds
+    # tuned for (a TPU) -> ladder, on cpu and cuda alike, as the reference
+    # rules off a TPU
     shapes = [(256, 8), (256, 128), (256, 129), (256, 256), (8, 2), (31, 1),
               (32, 16), (32, 17), (4999, 2500), (5000, 2500), (None, None)]
     for path in ("ladder", "pippenger"):
@@ -133,18 +133,12 @@ def test_host_helpers_and_path_rule_match_reference(monkeypatch):
         monkeypatch.setattr(RM, "_device_is_tpu", lambda: False)
         for lanes, rows in shapes:
             path, why = M.explain(lanes, rows, torch.device("cuda", 0))
-            assert path == RM.resolve(lanes, rows) == "ladder", (lanes, rows)
-            assert not why["tuned"] and "dup" not in why
-        assert M.resolve(256, 8, "cuda") == "ladder"
-        monkeypatch.setattr(RM, "_device_is_tpu", lambda: True)
-        monkeypatch.setattr(M, "TUNED_DEVICE_TYPES", ("cuda",))
-        for lanes, rows in shapes:
-            path, why = M.explain(lanes, rows, torch.device("cuda", 0))
             ref_path, ref_why = RM.explain(lanes, rows)
-            assert path == ref_path, (lanes, rows)
-            assert why.get("dup") == ref_why.get("dup")
-        assert M.resolve(256, 8, "cuda") == "pippenger"
-        assert M.resolve(4999, 2500, "cuda") == "ladder"
+            assert path == ref_path == "ladder", (lanes, rows)
+            assert why["rule"] == ref_why["rule"]
+            assert why["tpu"] is ref_why["tpu"] is False
+            assert "dup" not in why
+        assert M.resolve(256, 8, "cuda") == "ladder"
     assert M.get_path() == "auto"
     with pytest.raises(ValueError):
         M.set_path("bogus")
