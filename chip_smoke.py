@@ -11,7 +11,12 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. parity  -- hold each kernel against its plain PyTorch version on the
               card, on a seeded 8-lane batch through both scalars paths
               (the ladder and the GLV + Pippenger MSM), and scalars_msm
-              at the 256-lane batch's shapes (exact: integer arithmetic).
+              at the 256-lane batch's shapes (exact: integer arithmetic);
+              then the mesh kernels at workload A's shapes on 4 shards:
+              gather_hm (with out-of-range indices), scalars and
+              lane_affine (256 lanes with infinity lanes), shard_partials
+              (a shard's 2 rows and 64 lanes, and an all-padding shard),
+              aggregate_points on G1 and G2 (256 points, some absent).
 3. verify  -- drive TorchBls12381(device="cuda") through batch_verify:
               workload A, a 256-lane batch of single-key attestations
               over 4 messages (rows of 32), under the msm path rule's
@@ -26,7 +31,20 @@ Phases, each fatal on failure (exit code 1, no result line):
               kernel must have launched on some path.  Then the valid A
               batch runs warm 7 times on each of A's paths, interleaved
               (median and spread of the batch wall time).
-4. kzg     -- drive the blob path: the mainnet trusted setup (the port's
+4. mesh    -- TorchBls12381(mesh=make_mesh(devices=[cuda:0] * 4)), a
+              virtual 4-shard mesh on the one card: A under `auto` (the
+              ladder) and forced onto pippenger, B under `auto`, each
+              valid and with one swapped signature; verdicts, lane_ok and
+              h2c_dispatch_count must equal a single-device provider's on
+              the same batches.  Then the legacy ShardedVerifier on A (64
+              lanes a shard, a Miller row per lane), valid and tampered.
+              Counters are zeroed before each path and read after: each
+              batch must launch gather_hm once (grouped paths),
+              shard_partials once a shard and finish once; the legacy
+              path scalars and lane_affine, not scalars_group.  Then warm
+              A on the mesh against warm A on one device, 7 interleaved
+              repeats.
+5. kzg     -- drive the blob path: the mainnet trusted setup (the port's
               copy of the ceremony file), TorchKzg(device="cuda") behind
               crypto/kzg's set_backend; 9 seeded blobs, their commitments
               and proofs through the facade (kzg_msm over the 4096
@@ -43,9 +61,12 @@ Phases, each fatal on failure (exit code 1, no result line):
               of each with the host clock around every stage of the
               batch (G1 cache, challenges, range check, kzg_eval and
               its packing, multipliers, kzg_fold and its packing).
-5. timing  -- each kernel at the main path's shapes (A's for the BLS
+6. timing  -- each kernel at the main path's shapes (A's for the BLS
               kernels, finish on both the 1-lane wsig of scalars_msm and
-              the 256-lane wsig of scalars_group; the KZG path's for the
+              the 256-lane wsig of scalars_group; the mesh path's for
+              gather_hm and shard_partials, the legacy path's for scalars
+              and lane_affine, the parity phase's for aggregate_points,
+              which nothing on the path calls; the KZG path's for the
               KZG kernels), CUDA events, held against its plain version
               on the same inputs and timed there, and its bound: the
               int32 multiply-adds of the work over the card's IMAD rate
@@ -91,9 +112,18 @@ KERNELS = {
     "kzg_eval": ("kzg", "teku_tpu/ops/kzg.py:112"),
     "kzg_fold": ("kzg", "teku_tpu/ops/kzg.py:149"),
     "kzg_msm": ("kzg", "teku_tpu/ops/kzg.py:180"),
+    "gather_hm": ("shard", "teku_tpu/ops/verify.py:191"),
+    "scalars": ("scalars_group", "teku_tpu/ops/verify.py:200 (in _lane_work "
+                ":88)"),
+    "lane_affine": ("shard", "teku_tpu/ops/verify.py:209"),
+    "shard_partials": ("shard", "teku_tpu/ops/verify.py:399, :476"),
+    "aggregate_points": ("shard", "teku_tpu/ops/verify.py:528"),
 }
 BLS_KERNELS = ("g1_validate", "prepare", "h2c", "scalars_group",
                "scalars_msm", "miller", "finish")
+MESH_KERNELS = ("gather_hm", "scalars", "lane_affine", "shard_partials",
+                "aggregate_points")
+SHARDS = 4
 KZG_KERNELS = ("g1_validate", "kzg_eval", "kzg_fold", "kzg_msm")
 
 
@@ -236,12 +266,16 @@ def kernel_runner(host=False):
     from teku_tpu_torch.ops.kernels import msm as KM
     from teku_tpu_torch.ops.kernels import pairing as KP
     from teku_tpu_torch.ops.kernels import scalars_group as KS
+    from teku_tpu_torch.ops.kernels import shard as KSH
     table = {"g1_validate": KD._run_g1_validate, "prepare": KD._run_prepare,
              "h2c": KH._run_h2c, "scalars_group": KS._run_scalars_group,
              "scalars_msm": KM._run_scalars_msm,
              "miller": KP._run_miller, "finish": KP._run_finish,
              "kzg_eval": KK._run_kzg_eval, "kzg_fold": KK._run_kzg_fold,
-             "kzg_msm": KK._run_kzg_msm}
+             "kzg_msm": KK._run_kzg_msm, "gather_hm": KSH._run_gather_hm,
+             "scalars": KS._run_scalars, "lane_affine": KSH._run_lane_affine,
+             "shard_partials": KSH._run_shard_partials,
+             "aggregate_points": KSH._run_aggregate_points}
 
     def run(name, *args):
         return table[name](lib(KERNELS[name][0], host=host), *args)
@@ -255,13 +289,18 @@ def plain_runner():
     from teku_tpu_torch.ops.kernels import msm as KM
     from teku_tpu_torch.ops.kernels import pairing as KP
     from teku_tpu_torch.ops.kernels import scalars_group as KS
+    from teku_tpu_torch.ops.kernels import shard as KSH
     table = {"g1_validate": KD.g1_validate_plain,
              "prepare": KD.prepare_plain, "h2c": KH.h2c_plain,
              "scalars_group": KS.scalars_group_plain,
              "scalars_msm": KM.scalars_msm_plain,
              "miller": KP.miller_plain, "finish": KP.finish_plain,
              "kzg_eval": KK.kzg_eval_plain, "kzg_fold": KK.kzg_fold_plain,
-             "kzg_msm": KK.kzg_msm_plain}
+             "kzg_msm": KK.kzg_msm_plain, "gather_hm": KSH.gather_hm_plain,
+             "scalars": KS.scalars_plain,
+             "lane_affine": KSH.lane_affine_plain,
+             "shard_partials": KSH.shard_partials_plain,
+             "aggregate_points": KSH.aggregate_points_plain}
     return lambda name, *args: table[name](*args)
 
 
@@ -350,9 +389,87 @@ def phase_parity(signer, dev):
             t["group_present"])
     report("scalars_msm/A", [max_err(a, b) for a, b in zip(
         kr("scalars_msm", *args), plain_runner()("scalars_msm", *args))])
+    aggregate_args = mesh_parity(semis, plan, pk_jac, sig_jac, dev, report)
     torch.cuda.synchronize()
     if not ok_all:
         fail("a kernel disagrees with its plain version")
+    return aggregate_args
+
+
+def lane_rows(plan):
+    """Each lane's Miller row in a single-device dispatch plan (padding
+    lanes: row 0): the per-lane H(m) index of the legacy path."""
+    import numpy as np
+    rows = np.zeros(plan["pk_present"].shape[0], dtype=np.int32)
+    gi = plan["group_idx"]
+    for r, c in zip(*np.nonzero(plan["group_present"])):
+        rows[gi[r, c]] = r
+    return rows
+
+
+def mesh_parity(semis, plan, pk_jac, sig_jac, dev, report):
+    """The mesh kernels against their plain versions at workload A's
+    shapes (4 shards: 2 rows and 64 lanes each); `plan` is A's
+    single-device plan.  Returns the aggregate_points inputs (G1, G2)
+    for the timing phase."""
+    import torch
+    from teku_tpu_torch.ops import msm
+    from teku_tpu_torch.ops.provider import TorchBls12381
+    from teku_tpu_torch.parallel import make_mesh
+    kr, pr = kernel_runner(), plain_runner()
+
+    def check(label, name, *args):
+        report(label, [max_err(a, b) for a, b in zip(
+            as_tuple(kr(name, *args)), as_tuple(pr(name, *args)))])
+
+    mprov = TorchBls12381(device=dev, mesh=make_mesh(
+        devices=[dev] * SHARDS, advertise=False))
+    with msm.force("ladder"):
+        mplan = mprov.plan(semis, randomize=True)
+    draws = torch.from_numpy(mplan["hm_plan"][3]).to(dev)
+    hm = kr("h2c", draws[:, 0:2].contiguous(), draws[:, 2:4].contiguous())
+    row_gather = torch.from_numpy(mplan["row_gather"]).to(dev)
+    check("gather_hm/A", "gather_hm", hm, row_gather)
+    bad = row_gather.clone()
+    bad[1], bad[5] = hm.shape[0], -1
+    check("gather_hm/bad", "gather_hm", hm, bad)
+    if bool(kr("gather_hm", hm, bad)[1].item()):
+        fail("gather_hm accepted an index out of range")
+    # 256 lanes with infinity keys (lanes 3, 200) and signatures (3, 77)
+    pk_inf, sig_inf = pk_jac.clone(), sig_jac.clone()
+    pk_inf[[3, 200], 2] = 0
+    sig_inf[[3, 77], 2] = 0
+    r = torch.from_numpy(mplan["r"]).to(dev)
+    check("scalars/A", "scalars", pk_inf, sig_inf, r)
+    pk_r, wsig = kr("scalars", pk_inf, sig_inf, r)
+    check("lane_affine/A", "lane_affine", pk_r)
+    aff = kr("lane_affine", pk_r)
+    # a shard's partials: 2 Miller rows and 64 weighted signatures, and an
+    # all-padding shard (rows ONE, signatures infinity)
+    lanes = pk_jac.shape[0] // SHARDS
+    agg = aff[:2].contiguous()
+    hm_rows = kr("gather_hm", hm, row_gather)[0]
+    ml = kr("miller", agg, hm_rows[:2].contiguous(),
+            torch.ones(2, dtype=torch.bool, device=dev))
+    check("shard_partials/A", "shard_partials", ml, wsig[:lanes].contiguous())
+    ml_one = kr("miller", agg, hm_rows[:2].contiguous(),
+                torch.zeros(2, dtype=torch.bool, device=dev))
+    inf = wsig[:lanes].clone()
+    inf[:, 2] = 0
+    check("shard_partials/pad", "shard_partials", ml_one, inf)
+    prod, ssum = kr("shard_partials", ml_one, inf)
+    one = torch.zeros_like(prod)
+    one[0, 0, 0] = 1
+    if not torch.equal(prod, one) or bool(ssum[0, 2].any()):
+        fail("an all-padding shard did not give ONE and infinity")
+    # aggregate_points over A's 256 lanes, absent where the key is infinity
+    present = torch.ones(pk_jac.shape[0], dtype=torch.bool, device=dev)
+    present[[3, 200, 201]] = False
+    g2_pts = kr("gather_hm", hm, torch.from_numpy(lane_rows(plan)).to(dev))[0]
+    args = {"g1": (aff, present), "g2": (g2_pts, present)}
+    for group, a in args.items():
+        check(f"aggregate/{group}", "aggregate_points", *a)
+    return args
 
 
 def workload_a(signer):
@@ -460,6 +577,144 @@ def phase_verify(signer, dev, recorder):
         log(f"[verify] A warm, {path} - ladder per interleaved pair: "
             f"{spread(diffs, signed=True)}")
     log(f"[verify] msm dispatches: {json.dumps(prov.msm_dispatches)}")
+    return launches
+
+
+def phase_mesh(signer, dev, recorder):
+    """The group-aligned mesh on both scalars paths and the legacy
+    lane-sharded form, on a virtual 4-shard mesh of the one card, each
+    held against a single-device provider; returns {group: launches}."""
+    import numpy as np
+    import torch
+    from teku_tpu_torch.ops import kernels as K
+    from teku_tpu_torch.ops import msm
+    from teku_tpu_torch.ops.kernels import shard as KSH
+    from teku_tpu_torch.ops.provider import TorchBls12381
+    from teku_tpu_torch.parallel import ShardedVerifier, make_mesh
+    mesh = make_mesh(devices=[dev] * SHARDS)
+    log(f"[mesh] {SHARDS} shards on {[str(d) for d in mesh.devices]}")
+    batch_a, batch_b = workload_a(signer), workload_b(signer)
+    groups = [
+        ("mesh A/auto", "auto", "ladder", [
+            ("A", batch_a, True),
+            ("A, one swapped signature", swap_sig(batch_a, 5, 6), False)]),
+        ("mesh A/pippenger", "pippenger", "pippenger", [
+            ("A", batch_a, True),
+            ("A, one swapped signature", swap_sig(batch_a, 9, 10), False)]),
+        ("mesh B/auto", "auto", "ladder", [
+            ("B", batch_b, True),
+            ("B, one swapped signature", swap_sig(batch_b, 3, 4), False)])]
+    meshed = TorchBls12381(device=dev, mesh=mesh)
+    single = TorchBls12381(device=dev)
+    names = BLS_KERNELS + MESH_KERNELS
+    launches = {}
+    for group, path, resolved, cases in groups:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        recorder.group = group
+        results = []
+        with msm.force(path):
+            for label, triples, expect in cases:
+                t0 = time.perf_counter()
+                handle = meshed.begin_batch_verify(triples)
+                got = handle.result()
+                dt = time.perf_counter() - t0
+                results.append((label, triples, expect, got,
+                                handle.lane_ok(), dt))
+        recorder.group = None
+        launches[group] = {name: K.LAUNCHES[name] for name in names}
+        with msm.force(path):
+            for label, triples, expect, got, lane_ok, dt in results:
+                ref = single.begin_batch_verify(triples)
+                log(f"[mesh] {group} {label}: {got} (expected {expect}, "
+                    f"single device {ref.result()}) in {dt * 1e3:.1f} ms")
+                if got is not expect or ref.result() is not expect:
+                    fail(f"{group} batch '{label}' verified {got} on the "
+                         f"mesh, {ref.result()} on one device, expected "
+                         f"{expect}")
+                if not np.array_equal(lane_ok, ref.lane_ok()):
+                    fail(f"{group} batch '{label}': lane_ok differs from "
+                         f"the single-device dispatch's")
+                if meshed.h2c_dispatch_count != single.h2c_dispatch_count:
+                    fail(f"{group}: h2c_dispatch_count "
+                         f"{meshed.h2c_dispatch_count} on the mesh, "
+                         f"{single.h2c_dispatch_count} on one device")
+        log(f"[mesh] {group} launches: {json.dumps(launches[group])}")
+        n = len(cases)
+        other = SCALARS["ladder" if resolved == "pippenger" else "pippenger"]
+        want = {"gather_hm": n, "shard_partials": SHARDS * n, "finish": n,
+                "prepare": SHARDS * n, SCALARS[resolved]: SHARDS * n,
+                "miller": SHARDS * n, other: 0, "scalars": 0,
+                "lane_affine": 0}
+        for name, count in want.items():
+            if launches[group][name] != count:
+                fail(f"{group}: {name} launched {launches[group][name]} "
+                     f"times, expected {count}")
+    log(f"[mesh] h2c dispatches: mesh {meshed.h2c_dispatch_count}, one "
+        f"device {single.h2c_dispatch_count}; dedup counters: lanes "
+        f"{meshed.h2c_lanes} / {single.h2c_lanes}, unique "
+        f"{meshed.h2c_unique} / {single.h2c_unique}")
+    # the legacy lane-sharded form on A: 64 lanes a shard, a Miller row
+    # per lane; per-lane H(m) from the batch's unique rows
+    sharded = ShardedVerifier(mesh)
+    legacy = []
+    for label, triples, expect in (
+            ("A", batch_a, True),
+            ("A, one swapped signature", swap_sig(batch_a, 11, 12), False)):
+        with msm.force(msm.resolve(sharded=True)):
+            plan = single.plan([single.prepare_batch_verify(t)
+                                for t in triples], randomize=True)
+        hm_rows = single._hm_device(plan["hm_plan"])
+        hm, in_range = KSH.gather_hm(hm_rows, single._to_dev(
+            lane_rows(plan)))
+        if not bool(in_range.item()):
+            fail("legacy inputs: an H(m) row index out of range")
+        args = [single._to_dev(plan[k]) if k != "hm" else hm
+                for k in ShardedVerifier.KEYS]
+        legacy.append((label, triples, expect, args))
+    torch.cuda.synchronize()
+    K.reset_launches()
+    recorder.group = "legacy A"
+    results = []
+    for label, triples, expect, args in legacy:
+        t0 = time.perf_counter()
+        ok, lane_ok = sharded(*args)
+        got = bool(ok.item()) and bool(lane_ok.all())
+        results.append((label, triples, expect, got,
+                        time.perf_counter() - t0))
+    recorder.group = None
+    launches["legacy A"] = {name: K.LAUNCHES[name] for name in names}
+    for label, triples, expect, got, dt in results:
+        ref = single.batch_verify(triples)
+        log(f"[mesh] legacy A {label}: {got} (expected {expect}, single "
+            f"device {ref}) in {dt * 1e3:.1f} ms")
+        if got is not expect or ref is not expect:
+            fail(f"legacy batch '{label}' verified {got}, expected {expect}")
+    log(f"[mesh] legacy A launches: {json.dumps(launches['legacy A'])}")
+    n = len(legacy)
+    for name, count in {"scalars": SHARDS * n, "lane_affine": SHARDS * n,
+                        "shard_partials": SHARDS * n, "finish": n,
+                        "scalars_group": 0, "scalars_msm": 0,
+                        "gather_hm": 0}.items():
+        if launches["legacy A"][name] != count:
+            fail(f"legacy A: {name} launched {launches['legacy A'][name]} "
+                 f"times, expected {count}")
+    # warm A on the mesh against warm A on one device, interleaved
+    warm = {"mesh": [], "single": []}
+    for _ in range(WARM_REPS):
+        for key, prov in (("mesh", meshed), ("single", single)):
+            t0 = time.perf_counter()
+            got = prov.batch_verify(batch_a)
+            torch.cuda.synchronize()
+            warm[key].append((time.perf_counter() - t0) * 1e3)
+            if got is not True:
+                fail(f"warm A on {key} verified {got}")
+    for key, times in warm.items():
+        log(f"[mesh] A warm under auto on {key}, {WARM_REPS} repeats: "
+            f"{spread(times)}")
+    diffs = [a - b for a, b in zip(warm["mesh"], warm["single"])]
+    log(f"[mesh] A warm, mesh - single per interleaved pair: "
+        f"{spread(diffs, signed=True)}")
     return launches
 
 
@@ -680,12 +935,15 @@ class Recorder:
         from teku_tpu_torch.ops.kernels import msm as KM
         from teku_tpu_torch.ops.kernels import pairing as KP
         from teku_tpu_torch.ops.kernels import scalars_group as KS
+        from teku_tpu_torch.ops.kernels import shard as KSH
         self.group = None
         self.args = {}
         for mod, name in ((KD, "g1_validate"), (KD, "prepare"), (KH, "h2c"),
                           (KS, "scalars_group"), (KM, "scalars_msm"),
                           (KP, "miller"), (KP, "finish"), (KK, "kzg_eval"),
-                          (KK, "kzg_fold"), (KK, "kzg_msm")):
+                          (KK, "kzg_fold"), (KK, "kzg_msm"),
+                          (KSH, "gather_hm"), (KS, "scalars"),
+                          (KSH, "lane_affine"), (KSH, "shard_partials")):
             self._wrap(mod, name)
 
     def _wrap(self, mod, name):
@@ -728,9 +986,14 @@ def nbytes(xs) -> int:
 TIMED = [("g1_validate", "A/auto"), ("prepare", "A/auto"), ("h2c", "A/auto"),
          ("scalars_group", "A/auto"), ("scalars_msm", "A/pippenger"),
          ("miller", "A/auto"), ("finish", "A/auto"),
-         ("finish", "A/pippenger"), ("g1_validate", "kzg"),
+         ("finish", "A/pippenger"), ("gather_hm", "mesh A/auto"),
+         ("shard_partials", "mesh A/auto"), ("scalars", "legacy A"),
+         ("lane_affine", "legacy A"), ("aggregate_points", "parity g1"),
+         ("aggregate_points", "parity g2"), ("g1_validate", "kzg"),
          ("kzg_eval", "kzg"), ("kzg_fold", "kzg"), ("kzg_msm", "kzg")]
-GROUP_PATH = {"A/auto": "ladder", "A/pippenger": "pippenger", "kzg": "kzg"}
+GROUP_PATH = {"A/auto": "ladder", "A/pippenger": "pippenger", "kzg": "kzg",
+              "mesh A/auto": "mesh", "legacy A": "legacy mesh",
+              "parity g1": "parity (G1)", "parity g2": "parity (G2)"}
 # the TPU program each kernel replaces on the KZG path, where it differs
 KZG_REPLACES = {"g1_validate": "teku_tpu/ops/kzg.py:142"}
 
@@ -836,6 +1099,9 @@ def phase_timing(recorder, launches, dev):
     for name, group in TIMED:
         stem, replaces = KERNELS[name]
         args = recorder.args[(group, name)]
+        # aggregate_points has no caller on the path (nor in the
+        # reference): its row's launches are the path's, 0
+        launched = launches.get(group, {}).get(name, 0)
         kout = as_tuple(kr(name, *args))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -870,7 +1136,7 @@ def phase_timing(recorder, launches, dev):
                      "source": f"teku_tpu_torch/ops/kernels/{stem}.cu",
                      "replaces": (KZG_REPLACES.get(name, replaces)
                                   if group == "kzg" else replaces),
-                     "launches": launches[group][name],
+                     "launches": launched,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": max(ops_ms, bytes_ms),
                      "bound_by": "operations" if ops_ms >= bytes_ms
@@ -903,10 +1169,15 @@ def main() -> None:
     signer = Signer(args.seed, 256)
     log(f"[inputs] 256 seeded keys in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_parity(signer, dev)
+    aggregate_args = phase_parity(signer, dev)
     log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
     recorder = Recorder()
+    for group, inputs in aggregate_args.items():
+        recorder.args[(f"parity {group}", "aggregate_points")] = inputs
     launches = phase_verify(signer, dev, recorder)
+    t0 = time.perf_counter()
+    launches.update(phase_mesh(signer, dev, recorder))
+    log(f"[mesh] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches["kzg"] = phase_kzg(dev, args.seed, recorder)
     log(f"[kzg] done in {time.perf_counter() - t0:.1f} s")

@@ -33,7 +33,7 @@ from ..crypto.bls.constants import (B_G1, B_G2, ISO3_X_DEN, ISO3_X_NUM,
 KERNEL_DIR = os.path.join(os.path.dirname(__file__), "kernels")
 BUILD_ROOT = os.path.join(os.path.dirname(__file__), "_build")
 SOURCES = ("fp381", "decompress", "h2c", "scalars_group", "msm", "pairing",
-           "kzg")
+           "kzg", "shard")
 NVCC_FLAGS = ["-O3", "-arch=sm_90a", "-std=c++17", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 # the host build: the same sources as C++ (no __CUDACC__), each kernel a
@@ -162,6 +162,7 @@ def build_key(headers, flags) -> str:
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
+_INIT: set = set()          # (source, CUDA device index) inits done
 BUILD_INFO: dict = {}       # seconds, ptxas report per source, directory
 
 
@@ -233,12 +234,17 @@ SIGNATURES = {
                       ctypes.c_int),
     "scalars_msm": ([_P] * 6 + [_I] + [_P] * 4 + [_L, _L, _L, _P],
                     ctypes.c_int),
+    "scalars": ([_P] * 5 + [_L, _P], ctypes.c_int),
     "miller": ([_P] * 4 + [_L, _P], ctypes.c_int),
     "finish": ([_P, _L, _P, _L, _P, _P], ctypes.c_int),
     "fr_mul_count": ([], ctypes.c_ulonglong),         # host build only
     "kzg_eval": ([_P] * 6 + [_L, _L, _P], ctypes.c_int),
     "kzg_msm": ([_P] * 7 + [_L, _P], ctypes.c_int),
     "kzg_fold": ([_P] * 11 + [_L, _P], ctypes.c_int),
+    "gather_hm": ([_P, _L, _P, _P, _P, _L, _P], ctypes.c_int),
+    "lane_affine": ([_P, _P, _L, _P], ctypes.c_int),
+    "shard_partials": ([_P, _L, _P, _L, _P], ctypes.c_int),
+    "aggregate_points": ([_P, _P, _I, _P, _L, _P], ctypes.c_int),
 }
 
 
@@ -252,17 +258,39 @@ def _load(path: str) -> ctypes.CDLL:
 
 
 def library(source: str, host: bool = False) -> ctypes.CDLL:
-    """The loaded library of one kernel source (builds all on first use)."""
+    """The loaded library of one kernel source (builds all on first use;
+    each CUDA library inits the device current when it loads)."""
     with _LOCK:
         lib = _LIBS.get((source, host))
         if lib is None:
+            index = None if host else _current_device()
             for s, path in build_all(host).items():
                 if (s, host) not in _LIBS:
                     loaded = _load(path)
                     check(loaded.fp381_init(), f"{s} init")
                     _LIBS[(s, host)] = loaded
+                    if index is not None:
+                        _INIT.add((s, index))
             lib = _LIBS[(source, host)]
     return lib
+
+
+def _current_device() -> int:
+    import torch
+    return torch.cuda.current_device()
+
+
+def init_device() -> None:
+    """Init every CUDA library (its per-thread stack limit) on the current
+    device, once per device: a mesh over several cards calls this on each
+    card before its first launch there."""
+    index = _current_device()
+    for s in SOURCES:
+        lib = library(s)
+        with _LOCK:
+            if (s, index) not in _INIT:
+                check(lib.fp381_init(), f"{s} init on cuda:{index}")
+                _INIT.add((s, index))
 
 
 def check(err: int, what: str) -> None:

@@ -30,7 +30,9 @@ from .. import _build
 
 LAUNCHES = {name: 0 for name in (
     "fp381_ops", "g1_validate", "prepare", "h2c", "scalars_group",
-    "scalars_msm", "miller", "finish", "kzg_eval", "kzg_fold", "kzg_msm")}
+    "scalars_msm", "miller", "finish", "kzg_eval", "kzg_fold", "kzg_msm",
+    "gather_hm", "scalars", "lane_affine", "shard_partials",
+    "aggregate_points")}
 
 
 def reset_launches() -> None:

@@ -102,3 +102,46 @@ DEVNI fq12 final_exponentiation(const fq12& f) {
     fq12 c = fq12_mul(fq12_mul(pow_z(pow_z(b)), fq12_frobenius(b, 2)), fq12_conj(b));
     return fq12_mul(c, fq12_mul(fq12_sqr(g), g));
 }
+
+// One level of the reference's halving reductions over the leading axis
+// (points.py:point_batch_sum, pairing.py:batch_product), on rows of
+// canonical words in place: x[i] = x[i] op x[i + half] for i < half, and
+// for an odd count the last row then moves to row half (tail_pass, a
+// launch of its own: the pass's thread 0 reads row half).  The order is
+// the plain version's, so a Jacobian sum equals it word for word.
+DEVNI void fq12_prod_pass(long i, int32_t* x, long half) {
+    fq12_store(x + 144 * i, fq12_mul(fq12_load(x + 144 * i), fq12_load(x + 144 * (i + half))));
+}
+
+DEVNI void g2_sum_pass(long i, int32_t* x, long half) {
+    g2_store(x + 72 * i, pt_add(g2_load(x + 72 * i), g2_load(x + 72 * (i + half))));
+}
+
+// one thread per word: row n - 1 -> row n / 2 (n odd)
+DEVNI void tail_pass(long w, int32_t* x, long n, long width) {
+    x[(n / 2) * width + w] = x[(n - 1) * width + w];
+}
+
+#ifdef __CUDACC__
+__global__ void fq12_prod_pass_kernel(long n, int32_t* x, long half) {
+    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) fq12_prod_pass(i, x, half);
+}
+
+__global__ void g2_sum_pass_kernel(long n, int32_t* x, long half) {
+    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) g2_sum_pass(i, x, half);
+}
+
+__global__ void tail_pass_kernel(long n_words, int32_t* x, long n, long width) {
+    long w = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (w < n_words) tail_pass(w, x, n, width);
+}
+#endif
+
+// reduce n rows of `width` words at x into row 0, one launch per level
+#define HALVING(n, pass, x, width)                                               \
+    for (long m_ = (n); m_ > 1; m_ = m_ / 2 + (m_ & 1)) {                        \
+        LAUNCH(m_ / 2, pass, x, m_ / 2);                                         \
+        if (m_ & 1) LAUNCH(width, tail_pass, x, m_, (long)(width));              \
+    }

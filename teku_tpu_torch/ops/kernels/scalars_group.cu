@@ -9,16 +9,22 @@
 // table and digit order as the reference); [r]pk stays in a Montgomery
 // scratch on the card.  Pass 2 runs one thread per message row: it folds
 // the row's present, unmasked lanes and converts the sum to affine
-// (affine values are unique, so the fold order does not show).
+// (affine values are unique, so the fold order does not show).  The
+// `scalars` entry runs pass 1 alone for the per-lane pipeline, [r]pk out
+// as Jacobian words.
 //
 // Bound: 32-bit multiply-adds -- 64 doubles and 31 adds per ladder.
 
 #include "fp381.cuh"
 
+// [r]pk goes to the Montgomery scratch (scalars_group) or, as Jacobian
+// words, to pk_r_words (scalars)
 DEVNI void ladder(long i, const int32_t* pk_jac, const int32_t* sig_jac, const int64_t* r,
-                  g1p* pk_r, int32_t* wsig, long n) {
+                  g1p* pk_r, int32_t* pk_r_words, int32_t* wsig, long n) {
     if (i < n) {
-        pk_r[i] = pt_mul_u64(g1_load(pk_jac + 36 * i), (uint64_t)r[i]);
+        g1p p = pt_mul_u64(g1_load(pk_jac + 36 * i), (uint64_t)r[i]);
+        if (pk_r_words) g1_store(pk_r_words + 36 * i, p);
+        else pk_r[i] = p;
     } else {
         long j = i - n;
         g2_store(wsig + 72 * j, pt_mul_u64(g2_load(sig_jac + 72 * j), (uint64_t)r[j]));
@@ -43,9 +49,10 @@ DEVNI void group_row(long u, const g1p* pk_r, const uint8_t* miller_mask,
 
 #ifdef __CUDACC__
 __global__ void ladder_kernel(long m, const int32_t* pk_jac, const int32_t* sig_jac,
-                              const int64_t* r, g1p* pk_r, int32_t* wsig, long n) {
+                              const int64_t* r, g1p* pk_r, int32_t* pk_r_words, int32_t* wsig,
+                              long n) {
     long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < m) ladder(i, pk_jac, sig_jac, r, pk_r, wsig, n);
+    if (i < m) ladder(i, pk_jac, sig_jac, r, pk_r, pk_r_words, wsig, n);
 }
 
 __global__ void group_row_kernel(long rows, const g1p* pk_r, const uint8_t* miller_mask,
@@ -61,8 +68,17 @@ extern "C" int scalars_group(const int32_t* pk_jac, const int32_t* sig_jac, cons
                              const uint8_t* miller_mask, const int32_t* group_idx,
                              const uint8_t* group_present, int g, void* scratch, int32_t* agg,
                              uint8_t* u_mask, int32_t* wsig, long n, long rows, void* stream) {
-    LAUNCH(2 * n, ladder, pk_jac, sig_jac, r, (g1p*)scratch, wsig, n);
+    LAUNCH(2 * n, ladder, pk_jac, sig_jac, r, (g1p*)scratch, (int32_t*)0, wsig, n);
     LAUNCH(rows, group_row, (const g1p*)scratch, miller_mask, group_idx, group_present, g, agg,
            u_mask);
+    return 0;
+}
+
+// pass 1 alone, [r]pk out as (n, 3, 12) Jacobian words: the per-lane
+// pipeline's stage_scalars (verify.py:200, run by _lane_work :88), whose
+// lane_affine (shard.cu) follows
+extern "C" int scalars(const int32_t* pk_jac, const int32_t* sig_jac, const int64_t* r,
+                       int32_t* pk_r, int32_t* wsig, long n, void* stream) {
+    LAUNCH(2 * n, ladder, pk_jac, sig_jac, r, (g1p*)0, pk_r, wsig, n);
     return 0;
 }

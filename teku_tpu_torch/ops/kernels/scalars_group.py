@@ -1,6 +1,7 @@
 """scalars_group.cu: the random-multiplier ladders fused with the
 per-message fold (replaces teku_tpu/ops/verify.py:stage_scalars and
-stage_group)."""
+stage_group), and the ladders alone (``scalars``: stage_scalars of the
+per-lane pipeline)."""
 
 import torch
 
@@ -59,3 +60,34 @@ def scalars_group_plain(pk_jac, sig_jac, r, miller_mask, group_idx,
                                  g2_from_words(sig_jac), bits)
     agg, u_mask = V.stage_group(pk_r, miller_mask, group_idx, group_present)
     return g1_to_words(agg), u_mask, g2_to_words(wsig)
+
+
+def scalars(pk_jac, sig_jac, r):
+    """pk_jac (n, 3, 12), sig_jac (n, 3, 2, 12) words; r (n,) int64 bit
+    patterns of the 64-bit multipliers.  Returns ([r]pk (n, 3, 12),
+    [r]sig (n, 3, 2, 12)) Jacobian words."""
+    n = pk_jac.shape[0]
+    dev = pk_jac.device
+    check_tensor(pk_jac, "pk_jac", torch.int32, (n, 3, 12), dev)
+    check_tensor(sig_jac, "sig_jac", torch.int32, (n, 3, 2, 12), dev)
+    check_tensor(r, "r", torch.int64, (n,), dev)
+    if not on_card(pk_jac):
+        return scalars_plain(pk_jac, sig_jac, r)
+    LAUNCHES["scalars"] += 1
+    return _run_scalars(lib("scalars_group"), pk_jac, sig_jac, r)
+
+
+def _run_scalars(library, pk_jac, sig_jac, r):
+    n = pk_jac.shape[0]
+    pk_r = torch.empty_like(pk_jac)
+    wsig = torch.empty_like(sig_jac)
+    _build.check(library.scalars(ptr(pk_jac), ptr(sig_jac), ptr(r),
+                                 ptr(pk_r), ptr(wsig), LONG(n),
+                                 _build.stream_ptr(pk_jac)), "scalars")
+    return pk_r, wsig
+
+
+def scalars_plain(pk_jac, sig_jac, r):
+    pk_r, wsig = V.stage_scalars(g1_from_words(pk_jac), g2_from_words(sig_jac),
+                                 PT.scalar_from_uint64(r))
+    return g1_to_words(pk_r), g2_to_words(wsig)

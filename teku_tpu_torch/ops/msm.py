@@ -70,13 +70,19 @@ def get_path() -> str:
     return _state["path"]
 
 
-def explain(lanes=None, rows=None, device=None):
+def explain(lanes=None, rows=None, device=None, sharded: bool = False):
     """(path, why) for one dispatch: the effective path ('ladder' or
     'pippenger') and the decision context -- configured path, lanes,
     rows, dispatch device, the rule.  ``why`` mirrors the record of the
     reference's explain (its dispatch ledger stores it); the provider
-    itself only calls resolve()."""
+    itself only calls resolve().  ``sharded=True`` is the legacy
+    lane-sharded form (parallel.ShardedVerifier), whose lane shards split
+    message groups: it always takes the ladder, whatever is configured.
+    The group-aligned mesh resolves with sharded=False."""
     why = {"configured": get_path(), "lanes": lanes, "rows": rows}
+    if sharded:
+        why["rule"] = "legacy lane-sharded kernel always ladders"
+        return "ladder", why
     configured = why["configured"]
     if configured in ("ladder", "pippenger"):
         why["rule"] = "explicitly configured"
@@ -87,8 +93,9 @@ def explain(lanes=None, rows=None, device=None):
     return "ladder", why
 
 
-def resolve(lanes=None, rows=None, device=None) -> str:
-    return explain(lanes=lanes, rows=rows, device=device)[0]
+def resolve(lanes=None, rows=None, device=None, sharded: bool = False) -> str:
+    return explain(lanes=lanes, rows=rows, device=device,
+                   sharded=sharded)[0]
 
 
 class force:

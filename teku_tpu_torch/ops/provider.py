@@ -1,7 +1,7 @@
 """TorchBls12381 -- the BLS provider SPI on PyTorch and the CUDA kernels.
 
-The port of teku_tpu/ops/provider.py:JaxBls12381 without its mesh,
-metrics, tracing and ledger hooks.  Host work as in the reference: wire
+The port of teku_tpu/ops/provider.py:JaxBls12381 without its metrics,
+tracing and ledger hooks.  Host work as in the reference: wire
 parse (flag bits, x < P), SHA-256 message expansion, the pubkey LRU with
 one batched validation dispatch for its misses, unique-message dedup,
 group rows (cap 32), pow-2 buckets, the device H(m) arena, and 64-bit
@@ -9,8 +9,12 @@ random multipliers from ``secrets``.  Device work: the kernel chain
 prepare -> h2c (unique width) -> scalars -> miller -> finish
 (ops/kernels/), where the scalars stage is the 64-bit ladder with the
 per-row fold (scalars_group) or the GLV + Pippenger MSM (scalars_msm),
-chosen per dispatch by ops/msm.py's path rule.  With ``device="cpu"``
-the same chain runs the kernels' plain PyTorch versions.  Rare
+chosen per dispatch by ops/msm.py's path rule.  With ``mesh=`` (a
+parallel.Mesh) a dispatch is group-aligned over the mesh's devices:
+h2c once on the first device, gather_hm into the shard row layout, the
+chain up to miller per shard, shard_partials, and one finish on the
+gathered partials.  With ``device="cpu"`` (or a CPU mesh) the same chain
+runs the kernels' plain PyTorch versions.  Rare
 host-only SPI operations (key generation, signing, aggregation) go to
 the port's copy of the pure-Python oracle.
 """
@@ -37,6 +41,7 @@ from .kernels import h2c as KH
 from .kernels import msm as KM
 from .kernels import pairing as KP
 from .kernels import scalars_group as KS
+from .kernels import shard as KSH
 
 G1_INF = bytes([0xC0] + [0] * 47)
 G2_INF = bytes([0xC0] + [0] * 95)
@@ -117,19 +122,38 @@ class _Semi(BatchSemiAggregate):
 
 
 class DispatchHandle:
-    """An in-flight batch: kernels are enqueued; result() synchronizes."""
+    """An in-flight batch: kernels are enqueued; result() synchronizes.
 
-    __slots__ = ("_ok", "_lane_ok", "_n", "_verdict")
+    A mesh dispatch permutes lanes into group-aligned shard blocks:
+    ``lane_sel[i]`` is original lane i's slot, so lane_ok() reads the
+    lanes back in the caller's order; ``gather_ok`` is gather_hm's
+    index check, which result() raises on."""
 
-    def __init__(self, ok, lane_ok, n):
+    __slots__ = ("_ok", "_lane_ok", "_n", "_lane_sel", "_gather_ok",
+                 "_verdict")
+
+    def __init__(self, ok, lane_ok, n, lane_sel=None, gather_ok=None):
         self._ok = ok
         self._lane_ok = lane_ok
         self._n = n
+        self._lane_sel = lane_sel
+        self._gather_ok = gather_ok
         self._verdict = None
+
+    def lane_ok(self) -> np.ndarray:
+        """Each lane's decompression / subgroup / key verdict, (n,)."""
+        lane_ok = self._lane_ok.cpu().numpy()
+        if self._lane_sel is not None:
+            return lane_ok[self._lane_sel]
+        return lane_ok[:self._n]
 
     def result(self) -> bool:
         if self._verdict is None:
-            lane_ok = self._lane_ok[:self._n].cpu()
+            if self._gather_ok is not None and not bool(
+                    self._gather_ok.cpu()[0]):
+                raise RuntimeError("gather_hm: an H(m) row index is out "
+                                   "of range")
+            lane_ok = self.lane_ok()
             self._verdict = bool(self._ok.cpu()[0]) and bool(lane_ok.all())
         return self._verdict
 
@@ -145,7 +169,19 @@ class TorchBls12381(BLS12381):
                  group_cap: int = SS.GROUP_CAP_DEFAULT,
                  h2c_min_bucket: int = SS.H2C_MIN_BUCKET_DEFAULT,
                  h2c_cache_capacity: int = HC.DEFAULT_CAP,
-                 multipliers: Callable[[int], np.ndarray] = secret_multipliers):
+                 multipliers: Callable[[int], np.ndarray] = secret_multipliers,
+                 mesh=None):
+        # optional multi-device dispatch, group-aligned over the mesh's
+        # devices (parallel.GroupShardedVerifier); host arrays and the H(m)
+        # arena live on its first device
+        self._sharded = None
+        self.mesh_info = None
+        if mesh is not None:
+            from ..parallel import GroupShardedVerifier
+            self._sharded = GroupShardedVerifier(mesh, min_bucket=min_bucket)
+            min_bucket = self._sharded.min_bucket
+            self.mesh_info = self._sharded.describe()
+            device = mesh.devices[0]
         self.device = torch.device(device)
         self._pure = PureBls12381()
         self.max_batch = max_batch
@@ -159,6 +195,9 @@ class TorchBls12381(BLS12381):
         self._h2c_cache = HC.H2cPointCache(self.device, h2c_cache_capacity)
         self.dispatch_count = 0
         self.h2c_dispatch_count = 0
+        # dedup counters: lanes dispatched, and their unique messages
+        self.h2c_lanes = 0
+        self.h2c_unique = 0
         self.msm_dispatches = {"ladder": 0, "pippenger": 0}
 
     # ------------------------------------------------------------------
@@ -380,8 +419,20 @@ class TorchBls12381(BLS12381):
         rows = SS.group_rows(groups, self._group_cap)
         row_msgs = [uniq_msgs[u] for u, _ in rows]
         g_bucket = SS.group_bucket(rows)
-        u_total = SS.unique_bucket(len(rows), self._h2c_min_bucket)
-        padded = SS.lane_bucket(n, self.min_bucket)
+        # the h2c / H(m) arena width, from the batch alone: the same for
+        # a single-device and a mesh dispatch, so the h2c and dedup
+        # counters do not depend on the mesh
+        u_hm = SS.unique_bucket(len(rows), self._h2c_min_bucket)
+        shards = lane_pos = None
+        if self._sharded is not None:
+            # whole rows per shard, lanes permuted into shard blocks
+            shards = self._sharded.plan(rows, n,
+                                        min_rows_total=self._h2c_min_bucket)
+            padded, u_total = shards.padded, shards.rows_total
+            lane_pos = shards.lane_pos
+        else:
+            padded = SS.lane_bucket(n, self.min_bucket)
+            u_total = u_hm
 
         pk_x = np.zeros((padded, kmax, fp.NW), dtype=np.int32)
         pk_y = np.zeros((padded, kmax, fp.NW), dtype=np.int32)
@@ -391,19 +442,35 @@ class TorchBls12381(BLS12381):
         s_inf = np.zeros(padded, dtype=bool)
         lane_valid = np.zeros(padded, dtype=bool)
         for i, s in enumerate(semis):
+            p = i if lane_pos is None else int(lane_pos[i])
             for j, (x, y) in enumerate(s.pk_words):
-                pk_x[i, j] = x
-                pk_y[i, j] = y
-                pk_present[i, j] = True
-            sig_bytes[i] = s.sig_x_bytes
-            s_large[i] = s.sig_large
-            s_inf[i] = s.sig_inf
-            lane_valid[i] = True
+                pk_x[p, j] = x
+                pk_y[p, j] = y
+                pk_present[p, j] = True
+            sig_bytes[p] = s.sig_x_bytes
+            s_large[p] = s.sig_large
+            s_inf[p] = s.sig_inf
+            lane_valid[p] = True
         group_idx = np.zeros((u_total, g_bucket), dtype=np.int32)
         group_present = np.zeros((u_total, g_bucket), dtype=bool)
-        for r, (_, g) in enumerate(rows):
-            group_idx[r, :len(g)] = g
-            group_present[r, :len(g)] = True
+        row_gather = None
+        if shards is None:
+            for r, (_, g) in enumerate(rows):
+                group_idx[r, :len(g)] = g
+                group_present[r, :len(g)] = True
+        else:
+            # shard-local lane indices; row_gather places the canonical
+            # H(m) rows in the shard layout (padding rows gather slot 0,
+            # masked by group_present)
+            row_gather = np.zeros(u_total, dtype=np.int32)
+            for pos, r in enumerate(shards.row_layout):
+                if r < 0:
+                    continue
+                g = rows[r][1]
+                base = (pos // shards.rows_per_shard) * shards.lanes_per_shard
+                group_idx[pos, :len(g)] = lane_pos[np.asarray(g)] - base
+                group_present[pos, :len(g)] = True
+                row_gather[pos] = r
         # the scalars stage's path, per dispatch: the ladder takes 64-bit
         # multipliers (0 nudged to 1); pippenger splits the same draw
         # into GLV halves (k1, k2), or takes (1, 0) for r = 1
@@ -422,7 +489,9 @@ class TorchBls12381(BLS12381):
         else:
             raw = np.ones(padded, dtype=np.uint64)
         return {
-            "lanes": n, "pk_x": pk_x, "pk_y": pk_y, "pk_present": pk_present,
+            "lanes": n, "unique": len(uniq_msgs), "lane_pos": lane_pos,
+            "row_gather": row_gather, "pk_x": pk_x, "pk_y": pk_y,
+            "pk_present": pk_present,
             "sig_x0": fp.bytes_to_words_np(sig_bytes[:, 1]),
             "sig_x1": fp.bytes_to_words_np(sig_bytes[:, 0]),
             "sig_large": s_large, "sig_inf": s_inf, "lane_valid": lane_valid,
@@ -430,20 +499,39 @@ class TorchBls12381(BLS12381):
             "r": None if raw is None else raw.view(np.int64),
             "group_idx": group_idx,
             "group_present": group_present,
-            "hm_plan": self._hm_host_plan(row_msgs, u_total)}
+            "hm_plan": self._hm_host_plan(row_msgs, u_hm)}
+
+    # the mesh's lane-sharded and row-sharded inputs
+    LANE_KEYS = ("pk_x", "pk_y", "pk_present", "sig_x0", "sig_x1",
+                 "sig_large", "sig_inf", "lane_valid")
+    ROW_KEYS = ("group_idx", "group_present")
 
     def launch(self, plan: dict) -> DispatchHandle:
-        """Device half: the kernel chain, enqueued on the current stream."""
+        """Device half: the kernel chain, enqueued on the current stream
+        (a mesh: each shard's on its device's)."""
         self.dispatch_count += 1
+        self.h2c_lanes += plan["lanes"]
+        self.h2c_unique += plan["unique"]
+        self.msm_dispatches[plan["msm_path"]] += 1
         d = self._to_dev
         hm = self._hm_device(plan["hm_plan"])
+        if self._sharded is not None:
+            hm_rows, gather_ok = KSH.gather_hm(hm, d(plan["row_gather"]))
+            arrays = {k: plan[k] for k in self.LANE_KEYS + self.ROW_KEYS}
+            scalars = ("glv_digits" if plan["msm_path"] == "pippenger"
+                       else "r")
+            arrays[scalars] = plan[scalars]
+            arrays["hm_rows"] = hm_rows
+            ok, lane_ok = self._sharded.kernel(plan["msm_path"])(arrays)
+            return DispatchHandle(ok, lane_ok, plan["lanes"],
+                                  lane_sel=plan["lane_pos"],
+                                  gather_ok=gather_ok)
         pk_jac, sig_jac, lane_ok, miller_mask = KD.prepare(
             d(plan["pk_x"]), d(plan["pk_y"]), d(plan["pk_present"]),
             d(plan["sig_x0"]), d(plan["sig_x1"]), d(plan["sig_large"]),
             d(plan["sig_inf"]), d(plan["lane_valid"]))
         group_idx = d(plan["group_idx"])
         group_present = d(plan["group_present"])
-        self.msm_dispatches[plan["msm_path"]] += 1
         if plan["msm_path"] == "pippenger":
             agg, u_mask, wsig = KM.scalars_msm(
                 pk_jac, sig_jac, d(plan["glv_digits"]), miller_mask, group_idx,

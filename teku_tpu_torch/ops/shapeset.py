@@ -1,7 +1,8 @@
 """Pow-2 bucket policy of the dispatch, copied from teku_tpu/ops/shapeset.py.
 
-Pure host functions (lane, key, group-row, unique and miss buckets) so
-the port pads exactly as the reference does.
+Pure host functions (lane, key, group-row, unique and miss buckets, the
+pow-2 rounding of teku_tpu/infra/pow2.py) so the port pads exactly as
+the reference does.
 """
 
 from typing import List, Sequence, Tuple
@@ -15,6 +16,12 @@ SERVICE_MAX_BATCH = 256
 def next_pow2(n: int) -> int:
     """Smallest power of two >= n (1 for n <= 1)."""
     return 1 << max(0, (int(n) - 1).bit_length())
+
+
+def floor_pow2(n: int) -> int:
+    """Largest power of two <= n (1 for n <= 1)."""
+    n = int(n)
+    return 1 << max(0, n.bit_length() - 1) if n >= 1 else 1
 
 
 def lane_bucket(n: int, min_bucket: int) -> int:
@@ -57,3 +64,9 @@ def h2c_miss_bucket(n_missing: int, h2c_min_bucket: int) -> int:
 
 def pk_validate_bucket(n: int) -> int:
     return max(next_pow2(n), PK_VALIDATE_FLOOR)
+
+
+def shape_label(padded: int, kmax: int, mesh_devices: int = 0) -> str:
+    """The `shape` string of a padded dispatch (mesh dispatches: @m{n})."""
+    return f"{padded}x{kmax}" + (
+        f"@m{mesh_devices}" if mesh_devices else "")

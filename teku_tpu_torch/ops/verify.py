@@ -7,9 +7,13 @@ Montgomery limbs, the same masks), so each can be held against its
 JAX counterpart: prepare -> h2c (unique width) -> scalars -> group ->
 miller -> finish.  ``verify_staged_grouped`` chains them;
 ``verify_staged_pippenger`` runs the GLV + Pippenger scalars stage
-(ops/msm.py) in place of scalars + group.  The kernels
-in ops/kernels/ compute the same stages on canonical words; their
-plain versions call these functions.
+(ops/msm.py) in place of scalars + group; ``verify_staged_hm`` is the
+per-lane chain (gathered H(m), lane affine, a Miller row per lane).
+The mesh forms take one input tuple per shard (the blocks the
+reference's shard_map in_specs cut): each shard reduces to a local
+Fq12 product and G2 sum (``shard_partials``), and one finish runs on
+the stacked partials.  The kernels in ops/kernels/ compute the same
+stages on canonical words; their plain versions call these functions.
 """
 
 import torch
@@ -73,10 +77,21 @@ def stage_h2c(u0, u1):
     return h2c.to_affine_g2(h2c.hash_to_g2_device(u0, u1))
 
 
+def stage_gather_hm(hm_uniq, lane_map):
+    """The H(m) rows at the given indices: (U, L) affine tree -> (R, L)."""
+    idx = lane_map.to(torch.int64)
+    return fp.tree_map(lambda x: x[idx], hm_uniq)
+
+
 def stage_scalars(pk_jac, sig_jac, r_bits):
     """64-bit random-multiplier ladders on G1 and G2 (Jacobian out)."""
     return (PT.scalar_mul_bits(PT.G1_KIT, r_bits, pk_jac),
             PT.scalar_mul_bits(PT.G2_KIT, r_bits, sig_jac))
+
+
+def stage_lane_affine(pk_r_jac):
+    """Per-lane batched G1 affine (the per-lane pipeline)."""
+    return to_affine_g1(pk_r_jac)
 
 
 def stage_group(pk_r_jac, miller_mask, group_idx, group_present):
@@ -133,6 +148,27 @@ def stage_finish(ml, wsig):
                    point_batch_sum(PT.G2_KIT, wsig))
 
 
+def _lane_work(pk_xs, pk_ys, pk_present, hm_aff, sig_x_plain, sig_large,
+               sig_inf, r_bits, lane_valid):
+    """The per-lane pipeline downstream of h2c: (ml (N,), wsig (N,),
+    lane_ok (N,)), a Miller row per lane."""
+    pk_jac, sig_jac, lane_ok, miller_mask = stage_prepare(
+        pk_xs, pk_ys, pk_present, sig_x_plain, sig_large, sig_inf,
+        lane_valid)
+    pk_r_jac, wsig = stage_scalars(pk_jac, sig_jac, r_bits)
+    ml = stage_miller(stage_lane_affine(pk_r_jac), hm_aff, miller_mask)
+    return ml, wsig, lane_ok
+
+
+def verify_staged_hm(pk_xs, pk_ys, pk_present, hm_aff, sig_x_plain,
+                     sig_large, sig_inf, r_bits, lane_valid):
+    """The staged per-lane pipeline, per-lane H(m) points in: (ok, lane_ok)."""
+    ml, wsig, lane_ok = _lane_work(pk_xs, pk_ys, pk_present, hm_aff,
+                                   sig_x_plain, sig_large, sig_inf, r_bits,
+                                   lane_valid)
+    return stage_finish(ml, wsig), lane_ok
+
+
 def verify_staged_grouped(pk_xs, pk_ys, pk_present, hm_uniq, group_idx,
                           group_present, sig_x_plain, sig_large, sig_inf,
                           r_bits, lane_valid):
@@ -168,3 +204,88 @@ def verify_staged(pk_xs, pk_ys, pk_present, u0, u1, group_idx,
     return verify_staged_grouped(pk_xs, pk_ys, pk_present, stage_h2c(u0, u1),
                                  group_idx, group_present, sig_x_plain,
                                  sig_large, sig_inf, r_bits, lane_valid)
+
+
+# --------------------------------------------------------------------------
+# Mesh forms: a list of per-shard inputs in, one verdict out
+# --------------------------------------------------------------------------
+
+def shard_partials(ml, wsig):
+    """A shard's (local Fq12 product, local G2 Jacobian sum).  An
+    all-padding shard (every row ONE, every signature infinity) gives
+    ONE and infinity: the identity."""
+    return PR.batch_product(ml), point_batch_sum(PT.G2_KIT, wsig)
+
+
+def _stack_leaves(trees):
+    first = trees[0]
+    if isinstance(first, tuple):
+        return tuple(_stack_leaves([t[i] for t in trees])
+                     for i in range(len(first)))
+    return torch.stack(trees)
+
+
+def finish_partials(partials):
+    """The gathered (product, sum) pairs of every shard -> the verdict:
+    _finish(batch_product(products), point_batch_sum(sums))."""
+    return stage_finish(_stack_leaves([p for p, _ in partials]),
+                        _stack_leaves([s for _, s in partials]))
+
+
+def verify_sharded_grouped(shards, msm_path: str = "ladder"):
+    """The group-aligned mesh form of the grouped pipeline.  ``shards``
+    holds one tuple per shard, (pk_xs, pk_ys, pk_present, hm_rows,
+    group_idx, group_present, sig_x_plain, sig_large, sig_inf, scalars,
+    lane_valid), its group_idx shard-local and its scalars r bits
+    (ladder) or GLV digits (pippenger).  Returns (ok, lane_ok) with
+    lane_ok in the shard layout's lane order."""
+    partials, lane_oks = [], []
+    for (pk_xs, pk_ys, pk_present, hm_rows, group_idx, group_present,
+         sig_x, sig_large, sig_inf, scalars, lane_valid) in shards:
+        pk_jac, sig_jac, lane_ok, miller_mask = stage_prepare(
+            pk_xs, pk_ys, pk_present, sig_x, sig_large, sig_inf,
+            lane_valid)
+        if msm_path == "pippenger":
+            agg_aff, u_mask, wsig = stage_scalars_pippenger(
+                pk_jac, sig_jac, scalars, group_idx, group_present,
+                miller_mask)
+        else:
+            pk_r_jac, wsig = stage_scalars(pk_jac, sig_jac, scalars)
+            agg_aff, u_mask = stage_group(pk_r_jac, miller_mask, group_idx,
+                                          group_present)
+        ml = stage_miller(agg_aff, hm_rows, u_mask)
+        partials.append(shard_partials(ml, wsig))
+        lane_oks.append(lane_ok)
+    return finish_partials(partials), torch.cat(lane_oks)
+
+
+def verify_sharded(shards):
+    """The legacy lane-sharded form: per shard, (pk_xs, pk_ys,
+    pk_present, hm_aff, sig_x_plain, sig_large, sig_inf, r_bits,
+    lane_valid) through the per-lane pipeline.  Returns (ok, lane_ok)."""
+    partials, lane_oks = [], []
+    for args in shards:
+        ml, wsig, lane_ok = _lane_work(*args)
+        partials.append(shard_partials(ml, wsig))
+        lane_oks.append(lane_ok)
+    return finish_partials(partials), torch.cat(lane_oks)
+
+
+def split_shards(tree, n: int):
+    """Cut every leaf of a tree of global arrays into n equal blocks along
+    the leading axis: [shard 0's tree, ..., shard n-1's tree]."""
+    if isinstance(tree, (tuple, list)):
+        parts = [split_shards(t, n) for t in tree]
+        return [tuple(p[s] for p in parts) for s in range(n)]
+    if tree.shape[0] % n:
+        raise ValueError(f"leading axis {tree.shape[0]} does not split "
+                         f"into {n} shards")
+    return list(torch.chunk(tree, n))
+
+
+def aggregate_points(kit, xs, ys, present):
+    """Sum a padded batch of affine points; absent lanes are infinity.
+    Returns the Jacobian sum."""
+    inf = PT.infinity_like(kit, xs)
+    jac = PT._select_point(kit, present, (xs, ys, inf[0]), inf)
+    return point_batch_sum(kit, jac)

@@ -112,6 +112,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert {"teku_tpu_torch/crypto/kzg.py", "teku_tpu_torch/ops/kzg.py",
             "teku_tpu_torch/ops/modfield.py",
             "teku_tpu_torch/ops/kernels/kzg.py"} <= names
+    # the mesh slice: its modules are checked too
+    assert {"teku_tpu_torch/parallel/__init__.py",
+            "teku_tpu_torch/ops/kernels/shard.py"} <= names
     # TorchKzg never hands a batch to the facade's host path
     tree = ast.parse((root / "teku_tpu_torch/ops/kzg.py").read_text())
     assert not [n for n in ast.walk(tree) if getattr(n, "id", None) ==
