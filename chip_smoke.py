@@ -74,8 +74,11 @@ Phases, each fatal on failure (exit code 1, no result line):
               bytes over the memory rate, whichever is larger.  The work
               of a BLS kernel is the products the host C++ build of the
               same source executes on these inputs; that of a KZG
-              function the least its real inputs need (kzg_least_work),
-              with the kernel's own count printed beside it.
+              function and of lane_affine the least its real inputs need
+              (kzg_least_work, lane_affine_least_work: one batched
+              inversion where the kernel inverts per lane), with the
+              kernel's own count printed beside it.  gather_hm is also
+              timed against torch.index_select, its library call.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers (a row per kernel and path it was timed on -- ladder, pippenger,
@@ -1065,6 +1068,16 @@ def kzg_least_work(name, args, pairing_products):
             int(used.sum()) * (96 + 32 + 1) + 97)
 
 
+def lane_affine_least_work(pk_r):
+    """Fq products that Jacobian -> affine of these lanes needs at least:
+    one batched inversion of the nonzero z (3 (m - 1) products and one
+    inverse) and 4 products per such lane (z^-2, z^-3, x z^-2, y z^-3);
+    an infinity lane needs none."""
+    from teku_tpu_torch.crypto.bls.constants import P
+    m = int(pk_r[:, 2].ne(0).any(dim=1).sum())
+    return 3 * (m - 1) + pow_chain(P) + 4 * m if m else 0
+
+
 def host_products(stem, name, args):
     """(Fq, Fr) products the host C++ build of the kernel executes."""
     from teku_tpu_torch.ops import _build
@@ -1116,6 +1129,8 @@ def phase_timing(recorder, launches, dev):
         moved = nbytes(args) + nbytes(kout)
         if name.startswith("kzg_"):
             fq, fr, moved = kzg_least_work(name, args, pairing_products)
+        elif name == "lane_affine":
+            fq, fr = lane_affine_least_work(args[0]), 0
         elif group == "kzg":
             # g1_validate: the same work on every lane; the bucket's
             # padding lanes (x = 0) are not the path's points
@@ -1125,13 +1140,19 @@ def phase_timing(recorder, launches, dev):
         ops_ms = ((fq * MADS_PER_MONT_MUL + fr * MADS_PER_FR_MUL)
                   / imad_rate * 1e3)
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        # the one PyTorch call that computes the same function: the
+        # gather's hm[idx] (the kernel also checks the indices)
+        library_ms = (cuda_ms(lambda: torch.index_select(args[0], 0,
+                                                         args[1]), reps=3)
+                      if name == "gather_hm" else None)
         shapes = ", ".join("x".join(str(d) for d in a.shape) for a in args
                            if torch.is_tensor(a))
         log(f"[timing] {name:14s} {group:11s} in ({shapes}): max |kernel "
             f"- plain| = {err} (tolerance 0); kernel {ms:.3f} ms, plain "
             f"{plain_ms:.1f} ms; bound {max(ops_ms, bytes_ms):.4f} ms "
             f"({fq} Fq + {fr} Fr products, {moved} bytes); the kernel's "
-            f"own products {executed_ms:.4f} ms")
+            f"own products {executed_ms:.4f} ms"
+            + ("" if library_ms is None else f"; library {library_ms:.4f} ms"))
         rows.append({"name": name, "path": GROUP_PATH[group], "route": "cuda",
                      "source": f"teku_tpu_torch/ops/kernels/{stem}.cu",
                      "replaces": (KZG_REPLACES.get(name, replaces)
@@ -1141,7 +1162,7 @@ def phase_timing(recorder, launches, dev):
                      "bound_ms": max(ops_ms, bytes_ms),
                      "bound_by": "operations" if ops_ms >= bytes_ms
                      else "bytes",
-                     "library_ms": None, "executed_ops_ms": executed_ms})
+                     "library_ms": library_ms, "executed_ops_ms": executed_ms})
         if err != 0:
             fail(f"{name} disagrees with its plain version at {group}'s "
                  f"shapes")

@@ -162,7 +162,7 @@ def build_key(headers, flags) -> str:
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
-_INIT: set = set()          # (source, CUDA device index) inits done
+_INIT: set = set()          # (source, CUDA device index or "host") inits
 BUILD_INFO: dict = {}       # seconds, ptxas report per source, directory
 
 
@@ -259,18 +259,13 @@ def _load(path: str) -> ctypes.CDLL:
 
 def library(source: str, host: bool = False) -> ctypes.CDLL:
     """The loaded library of one kernel source (builds all on first use;
-    each CUDA library inits the device current when it loads)."""
+    the CUDA libraries init the device current when they load)."""
     with _LOCK:
         lib = _LIBS.get((source, host))
         if lib is None:
-            index = None if host else _current_device()
             for s, path in build_all(host).items():
-                if (s, host) not in _LIBS:
-                    loaded = _load(path)
-                    check(loaded.fp381_init(), f"{s} init")
-                    _LIBS[(s, host)] = loaded
-                    if index is not None:
-                        _INIT.add((s, index))
+                _LIBS.setdefault((s, host), _load(path))
+            _init_locked("host" if host else _current_device())
             lib = _LIBS[(source, host)]
     return lib
 
@@ -280,17 +275,24 @@ def _current_device() -> int:
     return torch.cuda.current_device()
 
 
-def init_device() -> None:
-    """Init every CUDA library (its per-thread stack limit) on the current
-    device, once per device: a mesh over several cards calls this on each
-    card before its first launch there."""
-    index = _current_device()
+def _init_locked(index) -> None:
+    """fp381_init (the per-thread stack limit) of every loaded library on
+    CUDA device `index` ("host": the host build), once each; _LOCK held."""
+    host = index == "host"
     for s in SOURCES:
-        lib = library(s)
-        with _LOCK:
-            if (s, index) not in _INIT:
-                check(lib.fp381_init(), f"{s} init on cuda:{index}")
-                _INIT.add((s, index))
+        if (s, index) not in _INIT:
+            what = f"{s} init" + ("" if host else f" on cuda:{index}")
+            check(_LIBS[(s, host)].fp381_init(), what)
+            _INIT.add((s, index))
+
+
+def init_device(index: int) -> None:
+    """Init every CUDA library on card `index` (a mesh over several cards
+    does this once for each card before its first launch there)."""
+    import torch
+    library(SOURCES[0])
+    with _LOCK, torch.cuda.device(index):
+        _init_locked(index)
 
 
 def check(err: int, what: str) -> None:

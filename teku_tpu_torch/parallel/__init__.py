@@ -220,17 +220,20 @@ def plan_group_shards(rows: Sequence[Tuple[int, List[int]]],
 # The sharded kernel chains
 # --------------------------------------------------------------------------
 
-@contextlib.contextmanager
 def _on(dev: torch.device):
     """Launches on `dev`: its CUDA device entered (a kernel launches on
-    the current device) and the kernels inited there; a CPU device
-    enters nothing."""
+    the current device); a CPU device enters nothing."""
     if dev.type != "cuda":
-        yield
-        return
-    with torch.cuda.device(dev):
-        _build.init_device()
-        yield
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def _init_devices(mesh: Mesh) -> None:
+    """Init the kernel libraries once on each CUDA card of the mesh."""
+    for index in sorted({torch.cuda.current_device() if d.index is None
+                         else d.index for d in mesh.devices
+                         if d.type == "cuda"}):
+        _build.init_device(index)
 
 
 def _put(x, dev: torch.device) -> torch.Tensor:
@@ -320,12 +323,11 @@ class ShardedVerifier:
     KEYS = ("pk_x", "pk_y", "pk_present", "hm", "sig_x0", "sig_x1",
             "sig_large", "sig_inf", "r", "lane_valid")
 
-    def __init__(self, mesh: Mesh, axis: str = DEFAULT_AXIS,
-                 min_bucket: int = 16):
+    def __init__(self, mesh: Mesh, min_bucket: int = 16):
         self.mesh = mesh
-        self.axis = axis
         self.n_devices = _mesh_size(mesh)
         self.min_bucket = max(min_bucket, self.n_devices)
+        _init_devices(mesh)
 
     def __call__(self, *args):
         return run_shards(self.mesh.devices, lane_shard,
@@ -342,17 +344,16 @@ class GroupShardedVerifier:
     """Group-aligned mesh dispatch: the per-dispatch shard planner
     (plan()) and one launch function per scalars path (kernel())."""
 
-    def __init__(self, mesh: Mesh, axis: str = DEFAULT_AXIS,
-                 min_bucket: int = 16):
+    def __init__(self, mesh: Mesh, min_bucket: int = 16):
         self.mesh = mesh
-        self.axis = axis
         self.n_devices = _mesh_size(mesh)
         self.min_bucket = max(min_bucket, self.n_devices)
+        _init_devices(mesh)
         self.devices = [str(d) for d in mesh.devices]
 
     def describe(self) -> dict:
         return {"devices": list(self.devices),
-                "n_devices": self.n_devices, "axis": self.axis}
+                "n_devices": self.n_devices, "axis": self.mesh.axis}
 
     def plan(self, rows, n_lanes: int, min_rows_total: int = 1) -> ShardPlan:
         return plan_group_shards(
@@ -361,7 +362,7 @@ class GroupShardedVerifier:
             min_rows=max(min_rows_total // self.n_devices, 1))
 
     def kernel_key(self, msm_path: str) -> tuple:
-        return (tuple(self.devices), self.axis, msm_path)
+        return (tuple(self.devices), self.mesh.axis, msm_path)
 
     def kernel(self, msm_path: str):
         """run(arrays) -> (ok, lane_ok): the mesh's launch function for
