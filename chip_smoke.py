@@ -6,8 +6,13 @@
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. build   -- compile every CUDA source of teku_tpu_torch/ops/kernels with
-              nvcc (in parallel) and print the build time and the ptxas
-              register / stack / spill report.
+              nvcc in both Montgomery engines, cios and mma (one parallel
+              batch of 16 processes), and print the build time, the ptxas
+              register / stack / shared memory / spill report (a stack
+              over fp381_init's 32 KB fails) and each library's IMMA
+              instruction count from cuobjdump -sass: the mma fp381 and
+              pairing libraries must hold some (the tensor cores are
+              reached), the cios libraries none.
 2. parity  -- hold each kernel against its plain PyTorch version on the
               card, on a seeded 8-lane batch through both scalars paths
               (the ladder and the GLV + Pippenger MSM), and scalars_msm
@@ -17,6 +22,11 @@ Phases, each fatal on failure (exit code 1, no result line):
               lane_affine (256 lanes with infinity lanes), shard_partials
               (a shard's 2 rows and 64 lanes, and an all-padding shard),
               aggregate_points on G1 and G2 (256 points, some absent).
+2b. row11 -- the Montgomery product alone (TPU program row 11): fp381_ops
+              fp_mul and fr_mul on the mma build, 4096 seeded pairs plus
+              0, 1, M - 1 and R mod M, word for word against the cios
+              build and canonically against the plain digit product
+              (mont_mul_mxu, run once on the card).
 3. verify  -- drive TorchBls12381(device="cuda") through batch_verify:
               workload A, a 256-lane batch of single-key attestations
               over 4 messages (rows of 32), under the msm path rule's
@@ -28,9 +38,13 @@ Phases, each fatal on failure (exit code 1, no result line):
               Launch counters are zeroed just before each of the four
               paths and read just after it: each path must have launched
               its own scalars kernel and not the other's, and every
-              kernel must have launched on some path.  Then the valid A
-              batch runs warm 7 times on each of A's paths, interleaved
-              (median and spread of the batch wall time).
+              kernel must have launched on some path.  A and B again on
+              a provider built with mont_path="mxu-force" (the mma
+              engine): the same verdicts, every launch an mma launch, no
+              cios launch, and no product of the mma build served by its
+              CIOS fallback (a split warp).  Then the valid A batch runs
+              warm 7 times on each of A's paths and on the mma engine,
+              interleaved (median and spread of the batch wall time).
 4. mesh    -- TorchBls12381(mesh=make_mesh(devices=[cuda:0] * 4)), a
               virtual 4-shard mesh on the one card: A under `auto` (the
               ladder) and forced onto pippenger, B under `auto`, each
@@ -41,9 +55,10 @@ Phases, each fatal on failure (exit code 1, no result line):
               Counters are zeroed before each path and read after: each
               batch must launch gather_hm once (grouped paths),
               shard_partials once a shard and finish once; the legacy
-              path scalars and lane_affine, not scalars_group.  Then warm
-              A on the mesh against warm A on one device, 7 interleaved
-              repeats.
+              path scalars and lane_affine, not scalars_group.  Mesh A
+              again on the mma engine, valid and tampered, with the same
+              launch counts on that engine.  Then warm A on the mesh
+              against warm A on one device, 7 interleaved repeats.
 5. kzg     -- drive the blob path: the mainnet trusted setup (the port's
               copy of the ceremony file), TorchKzg(device="cuda") behind
               crypto/kzg's set_backend; 9 seeded blobs, their commitments
@@ -60,7 +75,13 @@ Phases, each fatal on failure (exit code 1, no result line):
               9-blob batches, 7 repeats each, interleaved, and 7 more
               of each with the host clock around every stage of the
               batch (G1 cache, challenges, range check, kzg_eval and
-              its packing, multipliers, kzg_fold and its packing).
+              its packing, multipliers, kzg_fold and its packing).  K6
+              valid and with swapped proofs on a TorchKzg built with
+              mont_path="mxu-force", then warm K6 on both engines, 7
+              interleaved repeats.
+5b. engines -- every kernel on the mma build against the cios build, word
+              for word, on the inputs each of A (both scalars paths), B,
+              mesh A, the legacy mesh and K6 gave it.
 6. timing  -- each kernel at the main path's shapes (A's for the BLS
               kernels, finish on both the 1-lane wsig of scalars_msm and
               the 256-lane wsig of scalars_group; the mesh path's for
@@ -78,11 +99,19 @@ Phases, each fatal on failure (exit code 1, no result line):
               (kzg_least_work, lane_affine_least_work: one batched
               inversion where the kernel inverts per lane), with the
               kernel's own count printed beside it.  gather_hm is also
-              timed against torch.index_select, its library call.
+              timed against torch.index_select, its library call.  Each
+              kernel is timed on the mma build too, on the same inputs.
+              Row 11 alone: fp_mul at n = 256 and 2^20 and fr_mul at
+              2^20 on both builds, the plain digit product beside them,
+              bound by the CIOS product's work (576 / 256 IMADs a
+              product, or its bytes) with the mma kernel's own count
+              (int8 MACs) beside it.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers (a row per kernel and path it was timed on -- ladder, pippenger,
-kzg -- with its launches on that path), and last {"ok": true, "device":
+kzg -- with its launches on that path, and its mma-engine time and
+launches on the path's mxu-force twin; rows for row 11 alone), and last
+{"ok": true, "device":
 {...}}.  Keys and signatures come from the port's pure-Python oracle,
 blobs from numpy, both with --seed (default 2026).
 """
@@ -92,6 +121,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -187,14 +217,38 @@ def swap_sig(triples, a: int, b: int):
 # Phases
 # --------------------------------------------------------------------------
 
+STACK_LIMIT = 32768                 # fp381_init's per-thread stack
+
+
+def imma_counts(paths):
+    """{(source, engine): IMMA instructions in the library's SASS}, from
+    cuobjdump -sass (one process per library, in parallel)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    procs = {k: subprocess.Popen([tool, "-sass", p], stdout=subprocess.PIPE,
+                                 stderr=subprocess.DEVNULL, text=True)
+             for k, p in paths.items()}
+    counts = {}
+    for k, proc in procs.items():
+        sass = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0:
+            fail(f"cuobjdump -sass failed on {paths[k]}")
+        counts[k] = len(re.findall(r"\bIMMA\b", sass))
+    return counts
+
+
 def phase_build():
     from teku_tpu_torch.ops import _build
     t0 = time.perf_counter()
     paths = _build.build_all()
-    log(f"[build] {len(paths)} sources in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc wall {_build.BUILD_INFO.get('seconds', 0.0):.1f} s, "
-        f"{_build.BUILD_INFO['dir']})")
-    for src, report in sorted(_build.BUILD_INFO.get("ptxas", {}).items()):
+    log(f"[build] {len(paths)} libraries ({len(_build.SOURCES)} sources x "
+        f"engines {'/'.join(_build.ENGINES)}) in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc wall "
+        f"{_build.BUILD_INFO.get('seconds', 0.0):.1f} s, "
+        f"{_build.BUILD_INFO.get('processes', 0)} nvcc processes in "
+        f"parallel, {_build.BUILD_INFO['dir']})")
+    worst = 0
+    for (src, engine), report in sorted(
+            _build.BUILD_INFO.get("ptxas", {}).items()):
         entry, spills = "?", 0
         for line in report.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -204,15 +258,35 @@ def phase_build():
             if m:
                 spills += int(m.group(1))
             m = re.search(r"Used (\d+) registers.*?(\d+) bytes cumulative "
-                          r"stack size", line)
+                          r"stack size(?:, (\d+) bytes smem)?", line)
             if m:
-                log(f"[build] {src}.cu {entry}: {m.group(1)} registers, "
-                    f"{m.group(2)} bytes stack")
-        log(f"[build] {src}.cu: {spills} bytes of spill stores in all")
+                worst = max(worst, int(m.group(2)))
+                smem = f", {m.group(3)} bytes smem" if m.group(3) else ""
+                log(f"[build] {src}.cu ({engine}) {entry}: {m.group(1)} "
+                    f"registers, {m.group(2)} bytes stack{smem}")
+        log(f"[build] {src}.cu ({engine}): {spills} bytes of spill stores "
+            f"in all")
+    if worst > STACK_LIMIT:
+        fail(f"a kernel needs {worst} bytes of stack, over the "
+             f"{STACK_LIMIT}-byte limit fp381_init sets")
+    log(f"[build] largest cumulative stack {worst} bytes (limit "
+        f"{STACK_LIMIT})")
     t0 = time.perf_counter()
-    for src in _build.SOURCES:
-        _build.library(src)
-    log(f"[build] loaded {len(_build.SOURCES)} libraries in "
+    imma = imma_counts(paths)
+    log(f"[build] IMMA instructions per library (cuobjdump -sass, "
+        f"{time.perf_counter() - t0:.1f} s): " + json.dumps(
+            {f"{s}-{e}": n for (s, e), n in sorted(imma.items())}))
+    for src in ("fp381", "pairing"):
+        if imma[(src, "mma")] == 0:
+            fail(f"the mma build of {src}.cu has no IMMA instruction: the "
+                 f"tensor cores are not reached")
+    cios_imma = {s: n for (s, e), n in imma.items() if e == "cios" and n}
+    if cios_imma:
+        fail(f"cios libraries hold IMMA instructions: {cios_imma}")
+    t0 = time.perf_counter()
+    for src, engine in paths:
+        _build.library(src, engine=engine)
+    log(f"[build] loaded {len(paths)} libraries in "
         f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -259,9 +333,10 @@ def run_stages(plan, dev, runner):
     return ins, out
 
 
-def kernel_runner(host=False):
-    """run(name, *args): the kernel's launch on the CUDA build (or the host
-    C++ build), bypassing the wrapper and its launch counter."""
+def kernel_runner(host=False, engine="cios"):
+    """run(name, *args): the kernel's launch on the CUDA build of `engine`
+    (or the host C++ build), bypassing the wrapper and its launch
+    counter."""
     from teku_tpu_torch.ops.kernels import decompress as KD
     from teku_tpu_torch.ops.kernels import h2c as KH
     from teku_tpu_torch.ops.kernels import kzg as KK
@@ -281,7 +356,8 @@ def kernel_runner(host=False):
              "aggregate_points": KSH._run_aggregate_points}
 
     def run(name, *args):
-        return table[name](lib(KERNELS[name][0], host=host), *args)
+        return table[name](lib(KERNELS[name][0], host=host, engine=engine),
+                           *args)
     return run
 
 
@@ -399,6 +475,168 @@ def phase_parity(signer, dev):
     return aggregate_args
 
 
+# row 11: the Montgomery product itself, each engine's build of fp381.cu
+ROW11 = "teku_tpu/ops/mxu.py:195-273"
+ROW11_SOURCE = "teku_tpu_torch/ops/kernels/mma_digits.cuh"
+# the mma product's own work: two m16n8k32 tiles per operand pair
+MACS_PER_MMA_PRODUCT = 2 * 16 * 8 * 32
+INT8_OPS_PER_S = 1.979e15          # H100 SXM, dense int8 (2 ops a MAC)
+ROW11_FIELDS = {"fp_mul": (12, "P"), "fr_mul": (8, "R")}
+# (op, n) timed alone: the serving width and a width that fills the card
+ROW11_SIZES = (("fp_mul", 256), ("fp_mul", 1 << 20), ("fr_mul", 1 << 20))
+PLAIN_CHUNK = 1 << 16              # pairs per call of the plain version
+
+
+def row11_words(rng, op, n, edges=()):
+    """n seeded canonical elements of op's field (top word cut to 28
+    bits: below both moduli) and the given edge values, as words."""
+    import numpy as np
+    import torch
+    from teku_tpu_torch.ops import limbs as fp
+    nw = ROW11_FIELDS[op][0]
+    w = rng.integers(0, 1 << 32, (n, nw), dtype=np.uint64).astype(np.uint32)
+    w[:, -1] &= 0x0FFFFFFF
+    if edges:
+        w = np.concatenate([w, fp.ints_to_words(edges, nw).view(np.uint32)])
+    return torch.from_numpy(w.view(np.int32).copy())
+
+
+def row11_modulus(op):
+    from teku_tpu_torch.crypto.bls.constants import P, R
+    return {"P": P, "R": R}[ROW11_FIELDS[op][1]]
+
+
+def phase_row11(dev):
+    """fp381_ops fp_mul and fr_mul on the mma build (row 11) against the
+    cios build, word for word, and against the plain digit product
+    (mont_mul_mxu, the plain version) canonically: 4096 seeded pairs
+    plus 0, 1, M - 1 and R mod M."""
+    import numpy as np
+    import torch
+    from teku_tpu_torch.ops import kernels as K
+    from teku_tpu_torch.ops.kernels import fp381 as KF
+    rng = np.random.default_rng(11)
+    for op in ROW11_FIELDS:
+        m, nw = row11_modulus(op), ROW11_FIELDS[op][0]
+        edges = [0, 1, m - 1, (1 << (32 * nw)) % m]
+        a = row11_words(rng, op, 4096, edges).to(dev)
+        b = row11_words(rng, op, 4096, edges[::-1]).to(dev)
+        cios = KF._run(K.lib("fp381"), op, a, b)
+        mma = KF._run(K.lib("fp381", engine="mma"), op, a, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with K.plain_engine("mma"):
+            plain = KF.fp381_ops_plain(op, a, b)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        errs = max_err(mma, cios), max_err(mma, plain)
+        log(f"[row11] {op} on 4100 pairs: max |mma - cios| = {errs[0]}, "
+            f"max |mma - plain mont_mul_mxu| = {errs[1]} (tolerance 0; "
+            f"plain digit product on the card {dt:.1f} ms)")
+        if any(errs):
+            fail(f"row 11: {op} on the mma build disagrees")
+
+
+def row11_rows(imad_rate, launches, dev):
+    """Row 11 timed alone: fp_mul at n = 256 and 2^20 and fr_mul at 2^20
+    on both builds (CUDA events, median of 3), the plain digit product
+    (host clock, synchronized; chunks of 2^16 pairs), the bound from the
+    CIOS product's work (the products the host build counts, 576 / 256
+    IMADs each, against its bytes) and the mma kernel's own count (int8
+    MACs, 2 ops each, over the dense int8 rate)."""
+    import numpy as np
+    import torch
+    from teku_tpu_torch.ops import _build
+    from teku_tpu_torch.ops import kernels as K
+    from teku_tpu_torch.ops.kernels import fp381 as KF
+    rng = np.random.default_rng(1111)
+    mxu_paths = {g: sum(c.values()) for g, c in launches.items()
+                 if group_engine(g) == "mma"}
+    total = sum(mxu_paths.values())
+    log(f"[row11] mma-engine launches per mxu-force path (each runs the "
+        f"row-11 product): {json.dumps(mxu_paths)}")
+    host_lib = _build.library("fp381", host=True)
+    rows = []
+    for op, n in ROW11_SIZES:
+        nw = ROW11_FIELDS[op][0]
+        a = row11_words(rng, op, n).to(dev)
+        b = row11_words(rng, op, n).to(dev)
+        run = {e: (lambda e=e: KF._run(K.lib("fp381", engine=e), op, a, b))
+               for e in ("cios", "mma")}
+        outs = {e: f() for e, f in run.items()}
+        ms = {e: cuda_ms(f, reps=3) for e, f in run.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with K.plain_engine("mma"):
+            plain = torch.cat([
+                KF.fp381_ops_plain(op, a[i:i + PLAIN_CHUNK],
+                                   b[i:i + PLAIN_CHUNK])
+                for i in range(0, n, PLAIN_CHUNK)])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(max_err(outs["mma"], outs["cios"]),
+                  max_err(outs["mma"], plain))
+        counter = host_lib.fp381_mul_count if op == "fp_mul" \
+            else host_lib.fr_mul_count
+        before = counter()
+        KF._run(host_lib, op, a[:1].cpu(), b[:1].cpu())
+        per = counter() - before                 # products per element
+        mads = MADS_PER_MONT_MUL if op == "fp_mul" else MADS_PER_FR_MUL
+        ops_ms = n * per * mads / imad_rate * 1e3
+        bytes_ms = n * 3 * 4 * nw / HBM_BYTES_PER_S * 1e3
+        own_ms = n * per * MACS_PER_MMA_PRODUCT * 2 / INT8_OPS_PER_S * 1e3
+        log(f"[row11] {op} n = {n}: mma {ms['mma']:.4f} ms, cios "
+            f"{ms['cios']:.4f} ms, plain {plain_ms:.1f} ms; max |mma - "
+            f"cios|, |mma - plain| = {err}; bound {max(ops_ms, bytes_ms):.4f}"
+            f" ms ({per} products an element x {mads} IMADs, {n * 12 * nw}"
+            f" bytes); the mma kernel's own count {own_ms:.4f} ms "
+            f"({MACS_PER_MMA_PRODUCT} int8 MACs a product)")
+        if err:
+            fail(f"row 11: {op} at n = {n} disagrees")
+        rows.append({"name": "mont_mul_mxu" if op == "fp_mul"
+                     else "fr_mont_mul_mxu",
+                     "path": f"row 11 alone (fp381_ops {op}, n = {n})",
+                     "route": "cuda", "source": ROW11_SOURCE,
+                     "replaces": ROW11, "launches": total,
+                     "max_abs_err": err, "ms": ms["mma"],
+                     "plain_ms": plain_ms,
+                     "bound_ms": max(ops_ms, bytes_ms),
+                     "bound_by": "operations" if ops_ms >= bytes_ms
+                     else "bytes", "library_ms": None,
+                     "executed_ops_ms": own_ms, "cios_ms": ms["cios"],
+                     "mma_ms": ms["mma"], "mma_launches": total})
+    return rows
+
+
+# the groups whose recorded kernel inputs hold each engine against the
+# other (A on both scalars paths, B, the mesh, the legacy mesh, K6)
+ENGINE_PARITY_GROUPS = ("A/auto", "A/pippenger", "B/auto", "mesh A/auto",
+                        "legacy A", "kzg")
+
+
+def phase_engine_parity(recorder):
+    """Every kernel on the mma build against the cios build, word for
+    word, on the first inputs each group's main-path run gave it."""
+    import torch
+    from teku_tpu_torch.ops import _build
+    kr, km = kernel_runner(), kernel_runner(engine="mma")
+    bad = []
+    for (group, name), args in sorted(recorder.args.items()):
+        if group not in ENGINE_PARITY_GROUPS:
+            continue
+        err = max(max_err(a, b) for a, b in zip(
+            as_tuple(kr(name, *args)), as_tuple(km(name, *args))))
+        log(f"[engines] {name:14s} {group:12s} max |mma - cios| = {err} "
+            f"(tolerance 0)")
+        if err:
+            bad.append((group, name))
+    torch.cuda.synchronize()
+    fallbacks = sum(_build.mma_fallbacks(s) for s in _build.SOURCES)
+    if bad or fallbacks:
+        fail(f"the mma build disagrees with the cios build on {bad}, or "
+             f"{fallbacks} products ran on a split warp")
+
+
 def lane_rows(plan):
     """Each lane's Miller row in a single-device dispatch plan (padding
     lanes: row 0): the per-lane H(m) index of the legacy path."""
@@ -500,6 +738,31 @@ def spread(times, signed=False) -> str:
             f"{f.format(ts[0])}, max {f.format(ts[-1])}")
 
 
+def group_engine(group: str) -> str:
+    """The kernel engine of a verify group: the /mxu groups run on mma."""
+    return "mma" if group.endswith("/mxu") else "cios"
+
+
+def engine_launches(group, engine, names):
+    """The launches of `names` on `engine` since the counters were zeroed;
+    fails if the other engine launched anything, or if a product of the
+    mma build took the CIOS fallback (a warp split around a product)."""
+    from teku_tpu_torch.ops import _build
+    from teku_tpu_torch.ops import kernels as K
+    counts, other = ((K.MMA_LAUNCHES, K.LAUNCHES) if engine == "mma"
+                     else (K.LAUNCHES, K.MMA_LAUNCHES))
+    stray = {k: v for k, v in other.items() if v}
+    if stray:
+        fail(f"{group}: the other engine launched {stray}")
+    if engine == "mma":
+        fallbacks = {s: _build.mma_fallbacks(s) for s in _build.SOURCES}
+        log(f"[{group}] mma products served by the CIOS fallback since "
+            f"the build loaded: {json.dumps(fallbacks)}")
+        if any(fallbacks.values()):
+            fail(f"{group}: products of the mma build ran on a split warp")
+    return {name: counts[name] for name in names}
+
+
 def phase_verify(signer, dev, recorder):
     """Drive the three paths; returns {group: launches} and the warm
     repeats of A per path."""
@@ -522,10 +785,24 @@ def phase_verify(signer, dev, recorder):
             ("A, one swapped signature", swap_sig(batch_a, 7, 8), False)]),
         ("B/auto", "auto", "ladder", [
             ("B: 64 lanes x 128 keys, 64 messages", batch_b, True),
+            ("B, one swapped signature", swap_sig(batch_b, 3, 4), False)]),
+        # the same batches on the mma engine (row 11): a provider built
+        # under mont path mxu-force
+        ("A/mxu", "auto", "ladder", [
+            ("A under mxu-force", batch_a, True),
+            ("A, one swapped signature", swap_sig(batch_a, 5, 6), False)]),
+        ("B/mxu", "auto", "ladder", [
+            ("B under mxu-force", batch_b, True),
             ("B, one swapped signature", swap_sig(batch_b, 3, 4), False)])]
-    prov = TorchBls12381(device=dev)
+    provs = {"cios": TorchBls12381(device=dev),
+             "mma": TorchBls12381(device=dev, mont_path="mxu-force")}
+    if (provs["cios"].mont_path, provs["mma"].mont_path) != ("vpu", "mxu"):
+        fail(f"mont paths resolved to {provs['cios'].mont_path} and "
+             f"{provs['mma'].mont_path}, expected vpu and mxu")
     launches = {}
     for group, path, resolved, cases in groups:
+        engine = group_engine(group)
+        prov = provs[engine]
         results = []
         torch.cuda.synchronize()
         K.reset_launches()
@@ -540,11 +817,12 @@ def phase_verify(signer, dev, recorder):
             ran = [p for p, c in prov.msm_dispatches.items() if c != before[p]]
             results.append((label, got, expect, dt, ran))
         recorder.group = None
-        launches[group] = {name: K.LAUNCHES[name] for name in BLS_KERNELS}
+        launches[group] = engine_launches(group, engine, BLS_KERNELS)
         for label, got, expect, dt, ran in results:
             log(f"[verify] {group} {label}: {got} (expected {expect}) on "
                 f"{ran} in {dt * 1e3:.1f} ms")
-        log(f"[verify] {group} launches: {json.dumps(launches[group])}")
+        log(f"[verify] {group} {engine} launches: "
+            f"{json.dumps(launches[group])}")
         for label, got, expect, _, ran in results:
             if got is not expect:
                 fail(f"{group} batch '{label}' verified {got}, expected "
@@ -561,11 +839,13 @@ def phase_verify(signer, dev, recorder):
     for name in BLS_KERNELS:
         if not any(c[name] for c in launches.values()):
             fail(f"kernel {name} was not launched on the main path")
-    # warm repeats of the valid A batch on each path, interleaved
-    warm = {"auto": [], "ladder": [], "pippenger": []}
+    # warm repeats of the valid A batch on each path, interleaved; "mxu"
+    # is auto on the mma engine
+    warm = {"auto": [], "ladder": [], "pippenger": [], "mxu": []}
     for _ in range(WARM_REPS):
         for path, times in warm.items():
-            with msm.force(path):
+            prov = provs["mma" if path == "mxu" else "cios"]
+            with msm.force("auto" if path == "mxu" else path):
                 t0 = time.perf_counter()
                 got = prov.batch_verify(batch_a)
                 torch.cuda.synchronize()
@@ -575,11 +855,14 @@ def phase_verify(signer, dev, recorder):
     for path, times in warm.items():
         log(f"[verify] A warm under {path}, {WARM_REPS} repeats: "
             f"{spread(times)}")
-    for path in ("auto", "pippenger"):
-        diffs = [a - b for a, b in zip(warm[path], warm["ladder"])]
-        log(f"[verify] A warm, {path} - ladder per interleaved pair: "
+    for path, base in (("auto", "ladder"), ("pippenger", "ladder"),
+                       ("mxu", "auto")):
+        diffs = [a - b for a, b in zip(warm[path], warm[base])]
+        log(f"[verify] A warm, {path} - {base} per interleaved pair: "
             f"{spread(diffs, signed=True)}")
-    log(f"[verify] msm dispatches: {json.dumps(prov.msm_dispatches)}")
+    for engine, prov in provs.items():
+        log(f"[verify] msm dispatches ({engine}): "
+            f"{json.dumps(prov.msm_dispatches)}")
     return launches
 
 
@@ -606,12 +889,19 @@ def phase_mesh(signer, dev, recorder):
             ("A, one swapped signature", swap_sig(batch_a, 9, 10), False)]),
         ("mesh B/auto", "auto", "ladder", [
             ("B", batch_b, True),
-            ("B, one swapped signature", swap_sig(batch_b, 3, 4), False)])]
-    meshed = TorchBls12381(device=dev, mesh=mesh)
+            ("B, one swapped signature", swap_sig(batch_b, 3, 4), False)]),
+        ("mesh A/mxu", "auto", "ladder", [
+            ("A under mxu-force", batch_a, True),
+            ("A, one swapped signature", swap_sig(batch_a, 5, 6), False)])]
+    meshes = {"cios": TorchBls12381(device=dev, mesh=mesh),
+              "mma": TorchBls12381(device=dev, mesh=mesh,
+                                   mont_path="mxu-force")}
     single = TorchBls12381(device=dev)
     names = BLS_KERNELS + MESH_KERNELS
     launches = {}
     for group, path, resolved, cases in groups:
+        engine = group_engine(group)
+        meshed = meshes[engine]
         torch.cuda.synchronize()
         K.reset_launches()
         recorder.group = group
@@ -625,7 +915,7 @@ def phase_mesh(signer, dev, recorder):
                 results.append((label, triples, expect, got,
                                 handle.lane_ok(), dt))
         recorder.group = None
-        launches[group] = {name: K.LAUNCHES[name] for name in names}
+        launches[group] = engine_launches(group, engine, names)
         with msm.force(path):
             for label, triples, expect, got, lane_ok, dt in results:
                 ref = single.begin_batch_verify(triples)
@@ -638,11 +928,13 @@ def phase_mesh(signer, dev, recorder):
                 if not np.array_equal(lane_ok, ref.lane_ok()):
                     fail(f"{group} batch '{label}': lane_ok differs from "
                          f"the single-device dispatch's")
-                if meshed.h2c_dispatch_count != single.h2c_dispatch_count:
+                if (engine == "cios" and meshed.h2c_dispatch_count
+                        != single.h2c_dispatch_count):
                     fail(f"{group}: h2c_dispatch_count "
                          f"{meshed.h2c_dispatch_count} on the mesh, "
                          f"{single.h2c_dispatch_count} on one device")
-        log(f"[mesh] {group} launches: {json.dumps(launches[group])}")
+        log(f"[mesh] {group} {engine} launches: "
+            f"{json.dumps(launches[group])}")
         n = len(cases)
         other = SCALARS["ladder" if resolved == "pippenger" else "pippenger"]
         want = {"gather_hm": n, "shard_partials": SHARDS * n, "finish": n,
@@ -653,6 +945,7 @@ def phase_mesh(signer, dev, recorder):
             if launches[group][name] != count:
                 fail(f"{group}: {name} launched {launches[group][name]} "
                      f"times, expected {count}")
+    meshed = meshes["cios"]
     log(f"[mesh] h2c dispatches: mesh {meshed.h2c_dispatch_count}, one "
         f"device {single.h2c_dispatch_count}; dedup counters: lanes "
         f"{meshed.h2c_lanes} / {single.h2c_lanes}, unique "
@@ -686,7 +979,7 @@ def phase_mesh(signer, dev, recorder):
         results.append((label, triples, expect, got,
                         time.perf_counter() - t0))
     recorder.group = None
-    launches["legacy A"] = {name: K.LAUNCHES[name] for name in names}
+    launches["legacy A"] = engine_launches("legacy A", "cios", names)
     for label, triples, expect, got, dt in results:
         ref = single.batch_verify(triples)
         log(f"[mesh] legacy A {label}: {got} (expected {expect}, single "
@@ -805,7 +1098,7 @@ def phase_kzg(dev, seed, recorder):
         torch.cuda.synchronize()
         results.append((label, got, expect, time.perf_counter() - t0))
     recorder.group = None
-    launches = {name: K.LAUNCHES[name] for name in KZG_KERNELS}
+    launches = engine_launches("kzg", "cios", KZG_KERNELS)
     for label, got, expect, dt in results:
         log(f"[kzg] {label}: {got} (expected {expect}) in {dt * 1e3:.1f} ms")
     log(f"[kzg] launches: {json.dumps(launches)}")
@@ -851,8 +1144,53 @@ def phase_kzg(dev, seed, recorder):
             stages.undo()
         log(f"[kzg] stages of the warm {n}-blob batch, host clock, median "
             f"of {WARM_REPS} (ms): {json.dumps(stages.medians())}")
+    # K6 on the mma engine (row 11): a backend built under mxu-force
+    mxu_backend = TorchKzg(device=dev, mont_path="mxu-force")
+    HK.set_backend(mxu_backend)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    recorder.group = "kzg/mxu"
+    results = []
+    for label, (bl, cm, pr), expect in (
+            ("6 blobs under mxu-force", (blobs[six], cms[six], prs[six]),
+             True),
+            ("6 blobs, proofs swapped", (blobs[six], cms[six],
+                                         prs[1:6] + prs[:1]), False)):
+        t0 = time.perf_counter()
+        got = HK.verify_blob_kzg_proof_batch(bl, cm, pr)
+        torch.cuda.synchronize()
+        results.append((label, got, expect, time.perf_counter() - t0))
+    recorder.group = None
+    launches_mxu = engine_launches("kzg/mxu", "mma", KZG_KERNELS)
+    for label, got, expect, dt in results:
+        log(f"[kzg] {label}: {got} (expected {expect}, as the cios "
+            f"engine's) in {dt * 1e3:.1f} ms")
+        if got is not expect:
+            fail(f"kzg case '{label}' gave {got} on the mma engine")
+    log(f"[kzg] mma launches: {json.dumps(launches_mxu)}")
+    for name in ("g1_validate", "kzg_eval", "kzg_fold"):
+        if launches_mxu[name] < 1:
+            fail(f"kernel {name} was not launched on the K6 mxu path")
+    # warm K6 on each engine, interleaved
+    warm = {"cios": (backend, []), "mma": (mxu_backend, [])}
+    for _ in range(WARM_REPS):
+        for engine, (be, times) in warm.items():
+            HK.set_backend(be)
+            t0 = time.perf_counter()
+            got = HK.verify_blob_kzg_proof_batch(blobs[six], cms[six],
+                                                 prs[six])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if got is not True:
+                fail(f"warm K6 on {engine} verified {got}")
+    for engine, (_, times) in warm.items():
+        log(f"[kzg] warm 6-blob batch on {engine}, {WARM_REPS} repeats "
+            f"interleaved: {spread(times)}")
+    diffs = [a - b for a, b in zip(warm["mma"][1], warm["cios"][1])]
+    log(f"[kzg] warm K6, mma - cios per interleaved pair: "
+        f"{spread(diffs, signed=True)}")
     HK.set_backend(None)
-    return launches
+    return {"kzg": launches, "kzg/mxu": launches_mxu}
 
 
 class StageTimer:
@@ -952,11 +1290,11 @@ class Recorder:
     def _wrap(self, mod, name):
         orig = getattr(mod, name)
 
-        def wrapper(*args):
+        def wrapper(*args, **kwargs):
             key = (self.group, name)
             if self.group is not None and key not in self.args:
                 self.args[key] = args
-            return orig(*args)
+            return orig(*args, **kwargs)
         setattr(mod, name, wrapper)
 
 
@@ -997,6 +1335,8 @@ TIMED = [("g1_validate", "A/auto"), ("prepare", "A/auto"), ("h2c", "A/auto"),
 GROUP_PATH = {"A/auto": "ladder", "A/pippenger": "pippenger", "kzg": "kzg",
               "mesh A/auto": "mesh", "legacy A": "legacy mesh",
               "parity g1": "parity (G1)", "parity g2": "parity (G2)"}
+# the mxu-force twin of a path (the mma engine's launches)
+MXU_GROUP = {"A/auto": "A/mxu", "mesh A/auto": "mesh A/mxu", "kzg": "kzg/mxu"}
 # the TPU program each kernel replaces on the KZG path, where it differs
 KZG_REPLACES = {"g1_validate": "teku_tpu/ops/kzg.py:142"}
 
@@ -1097,6 +1437,7 @@ def phase_timing(recorder, launches, dev):
     log(f"[timing] {props.multi_processor_count} SMs at max {clock_mhz:.0f} "
         f"MHz: {imad_rate / 1e12:.2f} T IMAD/s; HBM {HBM_BYTES_PER_S / 1e12} TB/s")
     kr, pr = kernel_runner(), plain_runner()
+    km = kernel_runner(engine="mma")
     # two Miller loops and one final exponentiation, as pairing.cuh
     # computes them: pairing.cu's miller on one lane plus its finish on one
     # row and one lane (one more Miller loop and the final exponentiation)
@@ -1123,6 +1464,12 @@ def phase_timing(recorder, launches, dev):
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = max(max_err(a, b) for a, b in zip(kout, pout))
         ms = cuda_ms(lambda: kr(name, *args), reps=3)
+        # the same kernel on the mma engine: its launches on the path's
+        # mxu-force twin, its time, and its words against the cios build
+        mma_err = max(max_err(a, b) for a, b in zip(
+            as_tuple(km(name, *args)), kout))
+        mma_ms = cuda_ms(lambda: km(name, *args), reps=3)
+        mma_launched = launches.get(MXU_GROUP.get(group), {}).get(name, 0)
         fq, fr = host_products(stem, name, args)
         executed_ms = ((fq * MADS_PER_MONT_MUL + fr * MADS_PER_FR_MUL)
                        / imad_rate * 1e3)
@@ -1152,7 +1499,9 @@ def phase_timing(recorder, launches, dev):
             f"{plain_ms:.1f} ms; bound {max(ops_ms, bytes_ms):.4f} ms "
             f"({fq} Fq + {fr} Fr products, {moved} bytes); the kernel's "
             f"own products {executed_ms:.4f} ms"
-            + ("" if library_ms is None else f"; library {library_ms:.4f} ms"))
+            + ("" if library_ms is None else f"; library {library_ms:.4f} ms")
+            + f"; mma engine {mma_ms:.3f} ms, max |mma - cios| = {mma_err}, "
+            f"{mma_launched} mma launches")
         rows.append({"name": name, "path": GROUP_PATH[group], "route": "cuda",
                      "source": f"teku_tpu_torch/ops/kernels/{stem}.cu",
                      "replaces": (KZG_REPLACES.get(name, replaces)
@@ -1162,11 +1511,16 @@ def phase_timing(recorder, launches, dev):
                      "bound_ms": max(ops_ms, bytes_ms),
                      "bound_by": "operations" if ops_ms >= bytes_ms
                      else "bytes",
-                     "library_ms": library_ms, "executed_ops_ms": executed_ms})
+                     "library_ms": library_ms, "executed_ops_ms": executed_ms,
+                     "mma_ms": mma_ms, "mma_launches": mma_launched,
+                     "mma_max_abs_err": mma_err})
         if err != 0:
             fail(f"{name} disagrees with its plain version at {group}'s "
                  f"shapes")
-    return rows
+        if mma_err != 0:
+            fail(f"{name}'s mma build disagrees with its cios build at "
+                 f"{group}'s shapes")
+    return rows + row11_rows(imad_rate, launches, dev)
 
 
 def main() -> None:
@@ -1192,6 +1546,9 @@ def main() -> None:
     t0 = time.perf_counter()
     aggregate_args = phase_parity(signer, dev)
     log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_row11(dev)
+    log(f"[row11] parity done in {time.perf_counter() - t0:.1f} s")
     recorder = Recorder()
     for group, inputs in aggregate_args.items():
         recorder.args[(f"parity {group}", "aggregate_points")] = inputs
@@ -1200,8 +1557,11 @@ def main() -> None:
     launches.update(phase_mesh(signer, dev, recorder))
     log(f"[mesh] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches["kzg"] = phase_kzg(dev, args.seed, recorder)
+    launches.update(phase_kzg(dev, args.seed, recorder))
     log(f"[kzg] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_engine_parity(recorder)
+    log(f"[engines] done in {time.perf_counter() - t0:.1f} s")
     rows = phase_timing(recorder, launches, dev)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi("name,power.limit"), flush=True)

@@ -2,8 +2,13 @@
 
 Each kernel source is compiled by ``nvcc -O3 -arch=sm_90a -shared
 -Xcompiler -fPIC`` into its own shared library with a plain C ABI,
-loaded with ctypes.  The sources build in parallel (one nvcc process
-each, all started together) on first use, into ``ops/_build/<key>/``,
+loaded with ctypes, once for each Montgomery engine (``ENGINES``):
+``cios`` (the CUDA-core CIOS product) and ``mma`` (the tensor-core
+digit product of kernels/mma_digits.cuh, ``-DMONT_ENGINE_MMA=1``).  The
+libraries are keyed by (source, host, engine).  On the card every
+source of both engines builds in one parallel batch (one nvcc process
+each, all started together) on first use; the host C++ build compiles
+the one engine a caller loads.  Libraries go to ``ops/_build/<key>/``,
 where the key hashes the sources, the generated constants header and
 the flags -- an edit rebuilds, an unchanged tree reuses the libraries.
 
@@ -40,6 +45,10 @@ NVCC_FLAGS = ["-O3", "-arch=sm_90a", "-std=c++17", "-shared",
 # plain loop over its per-thread body -- checks the kernels' arithmetic on
 # a machine without a card
 HOST_FLAGS = ["-x", "c++", "-O2", "-std=c++17", "-shared", "-fPIC", "-w"]
+
+ENGINES = ("cios", "mma")
+# the compile-time switch of the mma engine (fp381.cuh)
+ENGINE_FLAGS = {"cios": [], "mma": ["-DMONT_ENGINE_MMA=1"]}
 
 R_MONT = (1 << 384) % P
 
@@ -162,7 +171,7 @@ def build_key(headers, flags) -> str:
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
-_INIT: set = set()          # (source, CUDA device index or "host") inits
+_INIT: set = set()          # (source, engine, CUDA device index or "host")
 BUILD_INFO: dict = {}       # seconds, ptxas report per source, directory
 
 
@@ -173,49 +182,57 @@ def host_compiler() -> str:
     return cxx
 
 
-def build_all(host: bool = False) -> dict:
-    """Compile every kernel source (in parallel) unless already built;
-    returns {source name: library path}.  host=True builds the sources
-    as C++ for the CPU instead (tests of the kernels' arithmetic)."""
+def build_all(host: bool = False, engines=ENGINES) -> dict:
+    """Compile every kernel source of each engine (all in parallel)
+    unless already built; returns {(source, engine): library path}.
+    host=True builds the sources as C++ for the CPU instead (tests of
+    the kernels' arithmetic)."""
     headers = {"fp381_consts.h": constants_header(),
                "fr255_consts.h": fr_constants_header()}
     flags = HOST_FLAGS if host else NVCC_FLAGS
     out_dir = os.path.join(BUILD_ROOT, ("host-" if host else "")
                            + build_key(headers, flags))
-    paths = {s: os.path.join(out_dir, f"lib{s}.so") for s in SOURCES}
-    if all(os.path.exists(p) for p in paths.values()):
+    paths = {(s, e): os.path.join(out_dir, f"lib{s}-{e}.so")
+             for e in engines for s in SOURCES}
+    todo = [k for k, p in paths.items() if not os.path.exists(p)]
+    if not todo:
         BUILD_INFO.setdefault("seconds", 0.0)
         BUILD_INFO["dir"] = out_dir
         return paths
     compiler = host_compiler() if host else nvcc_path()
     os.makedirs(out_dir, exist_ok=True)
     for name, text in headers.items():
-        with open(os.path.join(out_dir, name), "w") as fh:
+        # whole files only: another process may be compiling against them
+        tmp = os.path.join(out_dir, f"{name}.{os.getpid()}.tmp")
+        with open(tmp, "w") as fh:
             fh.write(text)
+        os.replace(tmp, os.path.join(out_dir, name))
     t0 = time.perf_counter()
     procs = {}
-    for s in SOURCES:
-        tmp = paths[s] + f".{os.getpid()}.tmp"
-        cmd = [compiler, *flags, "-I", out_dir, "-I", KERNEL_DIR, "-o", tmp,
+    for s, e in todo:
+        tmp = paths[(s, e)] + f".{os.getpid()}.tmp"
+        cmd = [compiler, *flags, *ENGINE_FLAGS[e], "-I", out_dir,
+               "-I", KERNEL_DIR, "-o", tmp,
                os.path.join(KERNEL_DIR, f"{s}.cu")]
-        procs[s] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT), tmp)
+        procs[(s, e)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT), tmp)
     reports, failed = {}, []
-    for s, (proc, tmp) in procs.items():
+    for (s, e), (proc, tmp) in procs.items():
         log = proc.communicate()[0].decode(errors="replace")
-        reports[s] = log
-        with open(os.path.join(out_dir, f"{s}.log"), "w") as fh:
+        reports[(s, e)] = log
+        with open(os.path.join(out_dir, f"{s}-{e}.log"), "w") as fh:
             fh.write(log)
         if proc.returncode != 0:
-            failed.append(s)
+            failed.append((s, e))
         else:
-            os.replace(tmp, paths[s])
+            os.replace(tmp, paths[(s, e)])
     if failed:
-        msg = "\n".join(f"--- {s} ---\n{reports[s][-4000:]}" for s in failed)
+        msg = "\n".join(f"--- {s} ({e}) ---\n{reports[(s, e)][-4000:]}"
+                        for s, e in failed)
         raise RuntimeError(f"kernel build failed for {failed}:\n{msg}")
     if not host:
         BUILD_INFO.update(seconds=time.perf_counter() - t0, ptxas=reports,
-                          dir=out_dir)
+                          dir=out_dir, processes=len(procs))
     return paths
 
 
@@ -245,6 +262,9 @@ SIGNATURES = {
     "lane_affine": ([_P, _P, _L, _P], ctypes.c_int),
     "shard_partials": ([_P, _L, _P, _L, _P], ctypes.c_int),
     "aggregate_points": ([_P, _P, _I, _P, _L, _P], ctypes.c_int),
+    # every library; 0 and a no-op in the host build and the cios build
+    "mma_fallback_count": ([_P], ctypes.c_int),
+    "mma_layout_check": ([_I, _P, _P], ctypes.c_int),   # host mma build
 }
 
 
@@ -257,16 +277,23 @@ def _load(path: str) -> ctypes.CDLL:
     return lib
 
 
-def library(source: str, host: bool = False) -> ctypes.CDLL:
-    """The loaded library of one kernel source (builds all on first use;
-    the CUDA libraries init the device current when they load)."""
+def library(source: str, host: bool = False,
+            engine: str = "cios") -> ctypes.CDLL:
+    """The loaded library of one kernel source and engine (builds on
+    first use: on the card every source of both engines, on the host the
+    requested engine's sources; the CUDA libraries init the device
+    current when they load)."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r} (use one of "
+                         f"{'/'.join(ENGINES)})")
     with _LOCK:
-        lib = _LIBS.get((source, host))
+        lib = _LIBS.get((source, host, engine))
         if lib is None:
-            for s, path in build_all(host).items():
-                _LIBS.setdefault((s, host), _load(path))
+            built = build_all(host, (engine,) if host else ENGINES)
+            for (s, e), path in built.items():
+                _LIBS.setdefault((s, host, e), _load(path))
             _init_locked("host" if host else _current_device())
-            lib = _LIBS[(source, host)]
+            lib = _LIBS[(source, host, engine)]
     return lib
 
 
@@ -279,11 +306,11 @@ def _init_locked(index) -> None:
     """fp381_init (the per-thread stack limit) of every loaded library on
     CUDA device `index` ("host": the host build), once each; _LOCK held."""
     host = index == "host"
-    for s in SOURCES:
-        if (s, index) not in _INIT:
-            what = f"{s} init" + ("" if host else f" on cuda:{index}")
-            check(_LIBS[(s, host)].fp381_init(), what)
-            _INIT.add((s, index))
+    for (s, h, e), lib in list(_LIBS.items()):
+        if h == host and (s, e, index) not in _INIT:
+            what = f"{s} ({e}) init" + ("" if host else f" on cuda:{index}")
+            check(lib.fp381_init(), what)
+            _INIT.add((s, e, index))
 
 
 def init_device(index: int) -> None:
@@ -293,6 +320,16 @@ def init_device(index: int) -> None:
     library(SOURCES[0])
     with _LOCK, torch.cuda.device(index):
         _init_locked(index)
+
+
+def mma_fallbacks(source: str) -> int:
+    """Products of the mma build of `source` on the current card that
+    only part of a warp reached, served by the CIOS product instead
+    (kernels/mma_digits.cuh): 0 when every kernel kept its warps whole."""
+    out = ctypes.c_ulonglong(0)
+    check(library(source, engine="mma").mma_fallback_count(
+        ctypes.addressof(out)), f"{source} (mma) fallback count")
+    return out.value
 
 
 def check(err: int, what: str) -> None:

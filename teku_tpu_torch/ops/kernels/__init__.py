@@ -4,11 +4,18 @@ Every wrapper takes canonical plain words (int32 bit patterns of 12
 little-endian 32-bit words per Fq element, 8 per Fr element) and returns
 words or bool verdicts.  On a CUDA tensor it launches its kernel (built
 from this directory's sources by ops/_build.py) and adds one to its
-entry in ``LAUNCHES``; on a CPU tensor it runs its plain PyTorch
-version, which converts to the 15 x 26-bit limbs of ops/limbs.py (Fr:
-the 10 limbs of ops/modfield.py) and calls the staged functions that
-mirror the JAX reference.  There is no fallback: a CUDA tensor never
-reaches the plain version through a wrapper.
+entry in ``LAUNCHES`` (the cios build) or ``MMA_LAUNCHES`` (the mma
+build); on a CPU tensor it runs its plain PyTorch version, which
+converts to the 15 x 26-bit limbs of ops/limbs.py (Fr: the 10 limbs of
+ops/modfield.py) and calls the staged functions that mirror the JAX
+reference.  There is no fallback: a CUDA tensor never reaches the plain
+version through a wrapper.
+
+Every wrapper takes ``engine``: ``"cios"`` (the default) or ``"mma"``,
+the Montgomery product its kernel is built with (``ENGINE_OF`` maps the
+resolved paths of ops/mxu.py onto them: vpu -> cios, mxu -> mma).  On
+the CPU its plain version runs with the matching plain product pinned
+(``mxu.engine``).
 
 A wrapper's internal ``_run_*`` takes the library to call as its first
 argument: the CUDA build, or (tests) the host C++ build of the same
@@ -27,17 +34,45 @@ import ctypes
 import torch
 
 from .. import _build
+from .. import mxu
 
-LAUNCHES = {name: 0 for name in (
-    "fp381_ops", "g1_validate", "prepare", "h2c", "scalars_group",
-    "scalars_msm", "miller", "finish", "kzg_eval", "kzg_fold", "kzg_msm",
-    "gather_hm", "scalars", "lane_affine", "shard_partials",
-    "aggregate_points")}
+NAMES = ("fp381_ops", "g1_validate", "prepare", "h2c", "scalars_group",
+         "scalars_msm", "miller", "finish", "kzg_eval", "kzg_fold", "kzg_msm",
+         "gather_hm", "scalars", "lane_affine", "shard_partials",
+         "aggregate_points")
+LAUNCHES = {name: 0 for name in NAMES}          # cios-engine launches
+MMA_LAUNCHES = {name: 0 for name in NAMES}      # mma-engine launches
+ENGINES = _build.ENGINES
+# the kernel build of each resolved Montgomery path (ops/mxu.py)
+ENGINE_OF = {"vpu": "cios", "mxu": "mma"}
+PATH_OF = {e: p for p, e in ENGINE_OF.items()}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, MMA_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def count_launch(name: str, engine: str) -> None:
+    (MMA_LAUNCHES if engine == "mma" else LAUNCHES)[name] += 1
+
+
+def plain_engine(engine: str):
+    """The plain versions' product for a kernel engine, pinned for a
+    block on this thread."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+    return mxu.engine(PATH_OF[engine])
+
+
+def lib_args(engine: str) -> dict:
+    """The keyword arguments that select `engine`'s library from lib():
+    none for cios, the default, so a ``lib`` that takes no engine (a
+    test's stand-in for the host build) still serves the cios build."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+    return {} if engine == "cios" else {"engine": engine}
 
 
 def check_tensor(t, name, dtype, shape, device):
@@ -72,8 +107,8 @@ def on_card(t) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
-def lib(source: str, host: bool = False):
-    return _build.library(source, host=host)
+def lib(source: str, host: bool = False, engine: str = "cios"):
+    return _build.library(source, host=host, engine=engine)
 
 
 ptr = _build.ptr

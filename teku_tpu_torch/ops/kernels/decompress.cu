@@ -21,7 +21,8 @@ DEVNI void g1_validate_key(long i, const int32_t* x, const uint8_t* large, uint8
     for (int j = 0; j < 12; j++) xp.v[j] = (uint32_t)x[12 * i + j];
     bool on_curve;
     g1p pt = g1_recover_y(xp, large[i] != 0, &on_curve);
-    ok[i] = (on_curve && g1_in_subgroup(pt)) ? 1 : 0;
+    bool in_sub = (EVERY_LANE || on_curve) && g1_in_subgroup(pt);
+    if (LIVE) ok[i] = (on_curve && in_sub) ? 1 : 0;
     fp_store(ox + 12 * i, pt.x);
     fp_store(oy + 12 * i, pt.y);
 }
@@ -29,8 +30,7 @@ DEVNI void g1_validate_key(long i, const int32_t* x, const uint8_t* large, uint8
 #ifdef __CUDACC__
 __global__ void g1_validate_key_kernel(long n, const int32_t* x, const uint8_t* large, uint8_t* ok,
                                        int32_t* ox, int32_t* oy) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) g1_validate_key(i, x, large, ok, ox, oy);
+    SHELL(n, g1_validate_key(ix, x, large, ok, ox, oy));
 }
 #endif
 
@@ -48,17 +48,23 @@ DEVNI void prepare_lane(long i, const int32_t* pk_x, const int32_t* pk_y,
     g1p* pts = scratch + i * k;
     for (int j = 0; j < k; j++) {
         long s = i * k + j;
-        if (pk_present[s]) {
-            pts[j].x = fp_load(pk_x + 12 * s);
-            pts[j].y = fp_load(pk_y + 12 * s);
-            pts[j].z = K_ONE;
-        } else {
-            pts[j] = pt_infinity<fp>();
+        bool present = pk_present[s] != 0;
+        g1p q = pt_infinity<fp>();
+        WHEN(present) {
+            g1p key;
+            key.x = fp_load(pk_x + 12 * s);
+            key.y = fp_load(pk_y + 12 * s);
+            key.z = K_ONE;
+            if (present) q = key;
         }
+        if (LIVE) pts[j] = q;
     }
     // _aggregate_lane_pks: point_batch_sum over the (pow-2) key axis
     for (int m = k; m > 1; m >>= 1)
-        for (int j = 0; j < m / 2; j++) pts[j] = pt_add(pts[j], pts[j + m / 2]);
+        for (int j = 0; j < m / 2; j++) {
+            g1p q = pt_add(pts[j], pts[j + m / 2]);
+            if (LIVE) pts[j] = q;
+        }
     g1p pk = pts[0];
     bool pk_inf = pt_is_inf(pk);
     g1_store(pk_jac + 36 * i, pk);
@@ -75,8 +81,10 @@ DEVNI void prepare_lane(long i, const int32_t* pk_x, const int32_t* pk_y,
     bool use_inf = sig_inf[i] || !sig_ok || !lane_valid[i];
     if (use_inf) sig = pt_infinity<fq2>();
     g2_store(sig_jac + 72 * i, sig);
-    lane_ok[i] = (sig_ok && !pk_inf) ? 1 : 0;
-    miller_mask[i] = (lane_valid[i] && !pk_inf) ? 1 : 0;
+    if (LIVE) {
+        lane_ok[i] = (sig_ok && !pk_inf) ? 1 : 0;
+        miller_mask[i] = (lane_valid[i] && !pk_inf) ? 1 : 0;
+    }
 }
 
 #ifdef __CUDACC__
@@ -86,10 +94,8 @@ __global__ void prepare_lane_kernel(long n, const int32_t* pk_x, const int32_t* 
                                     const uint8_t* sig_inf, const uint8_t* lane_valid,
                                     g1p* scratch, int32_t* pk_jac, int32_t* sig_jac,
                                     uint8_t* lane_ok, uint8_t* miller_mask) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n)
-        prepare_lane(i, pk_x, pk_y, pk_present, k, sig_x0, sig_x1, sig_large, sig_inf,
-                     lane_valid, scratch, pk_jac, sig_jac, lane_ok, miller_mask);
+    SHELL(n, prepare_lane(ix, pk_x, pk_y, pk_present, k, sig_x0, sig_x1, sig_large, sig_inf,
+                     lane_valid, scratch, pk_jac, sig_jac, lane_ok, miller_mask));
 }
 #endif
 

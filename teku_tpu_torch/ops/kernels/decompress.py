@@ -10,19 +10,22 @@ from .. import _build
 from .. import limbs as fp
 from .. import points as PT
 from .. import verify as V
-from . import LAUNCHES, INT, LONG, check_tensor, lib, on_card, ptr
+from . import (INT, LONG, check_tensor, count_launch, lib, lib_args, on_card,
+               plain_engine, ptr)
 
 
-def g1_validate(x, large):
+def g1_validate(x, large, engine="cios"):
     """x: (m, 12) canonical plain words of wire x; large: (m,) sign flag.
     Returns (ok (m,), affine x words, affine y words)."""
     m = x.shape[0]
     check_tensor(x, "x", torch.int32, (m, 12), x.device)
     check_tensor(large, "large", torch.bool, (m,), x.device)
     if not on_card(x):
-        return g1_validate_plain(x, large)
-    LAUNCHES["g1_validate"] += 1
-    return _run_g1_validate(lib("decompress"), x, large)
+        with plain_engine(engine):
+            return g1_validate_plain(x, large)
+    count_launch("g1_validate", engine)
+    library = lib("decompress", **lib_args(engine))
+    return _run_g1_validate(library, x, large)
 
 
 def _run_g1_validate(library, x, large):
@@ -42,7 +45,7 @@ def g1_validate_plain(x, large):
 
 
 def prepare(pk_x, pk_y, pk_present, sig_x0, sig_x1, sig_large, sig_inf,
-            lane_valid):
+            lane_valid, engine="cios"):
     """pk_x/pk_y: (n, k, 12) affine key words; pk_present (n, k);
     sig_x0/sig_x1: (n, 12) plain words of the signature's x (c0, c1);
     sig_large, sig_inf, lane_valid: (n,).
@@ -62,10 +65,12 @@ def prepare(pk_x, pk_y, pk_present, sig_x0, sig_x1, sig_large, sig_inf,
     if k & (k - 1):
         raise ValueError(f"keys per lane {k} is not a power of two")
     if not on_card(pk_x):
-        return prepare_plain(pk_x, pk_y, pk_present, sig_x0, sig_x1,
-                             sig_large, sig_inf, lane_valid)
-    LAUNCHES["prepare"] += 1
-    return _run_prepare(lib("decompress"), pk_x, pk_y, pk_present, sig_x0,
+        with plain_engine(engine):
+            return prepare_plain(pk_x, pk_y, pk_present, sig_x0, sig_x1,
+                                 sig_large, sig_inf, lane_valid)
+    count_launch("prepare", engine)
+    library = lib("decompress", **lib_args(engine))
+    return _run_prepare(library, pk_x, pk_y, pk_present, sig_x0,
                         sig_x1, sig_large, sig_inf, lane_valid)
 
 

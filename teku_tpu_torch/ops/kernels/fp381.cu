@@ -4,12 +4,16 @@
 // arithmetic every kernel is built from (the counterpart of the TPU
 // engine's teku_tpu/ops/limbs.py mont_mul / pow_static / inv and
 // towers.py fq2_mul / fq12_mul), so each can be held against the plain
-// PyTorch engine on the card.  Bound: 32-bit multiply-adds (fp381.cuh).
-// One thread per element; canonical plain words in and out.
+// PyTorch engine on the card.  fp_mul and fr_mul are each engine's
+// Montgomery product alone (the mma build: row 11, mma_digits.cuh).
+// Bound: 32-bit multiply-adds (fp381.cuh, fr255.cuh).  One thread per
+// element; canonical plain words in and out.
 
 #include "fp381.cuh"
+#include "fr255.cuh"
 
-enum { OP_FP_MUL = 0, OP_FP_INV = 1, OP_FP_SQRT = 2, OP_FQ2_MUL = 3, OP_FQ12_MUL = 4 };
+enum { OP_FP_MUL = 0, OP_FP_INV = 1, OP_FP_SQRT = 2, OP_FQ2_MUL = 3, OP_FQ12_MUL = 4,
+       OP_FR_MUL = 5 };
 
 DEVNI void fp381_op(long i, int op, const int32_t* a, const int32_t* b, int32_t* out) {
     switch (op) {
@@ -28,13 +32,15 @@ DEVNI void fp381_op(long i, int op, const int32_t* a, const int32_t* b, int32_t*
     case OP_FQ12_MUL:
         fq12_store(out + 144 * i, fq12_mul(fq12_load(a + 144 * i), fq12_load(b + 144 * i)));
         break;
+    case OP_FR_MUL:
+        fr_store(out + 8 * i, fr_mul(fr_load(a + 8 * i), fr_load(b + 8 * i)));
+        break;
     }
 }
 
 #ifdef __CUDACC__
 __global__ void fp381_op_kernel(long n, int op, const int32_t* a, const int32_t* b, int32_t* out) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) fp381_op(i, op, a, b, out);
+    SHELL(n, fp381_op(ix, op, a, b, out));
 }
 #endif
 

@@ -27,11 +27,29 @@
 // The same text compiles as host C++ (no __CUDACC__): each carry-chain
 // primitive then keeps the carry flag in a variable, so the arithmetic
 // can be exercised by a C++ compiler on a machine without a card.
+//
+// Two engines build every source (ops/_build.py): ``cios`` (this file's
+// CIOS product) and ``mma`` (-DMONT_ENGINE_MMA=1: fp_mul and fr_mul take
+// the tensor-core product of mma_digits.cuh).  The mma product is one
+// instruction of a whole warp, so under it every thread of a warp runs
+// the same products: the kernel shells run padding threads on a clamped
+// index with their stores off (SHELL, LIVE), and a product that depends
+// on data is computed on every thread and selected (WHEN, EVERY_LANE).
+// The cios build keeps its control flow.
 
 #pragma once
 #include <stdint.h>
 
+#ifndef MONT_ENGINE_MMA
+#define MONT_ENGINE_MMA 0
+#endif
+#define EVERY_LANE MONT_ENGINE_MMA
+// WHEN(c) { x = f(); if (c) y = x; } -- f runs on every thread under the
+// mma engine (selected afterwards), only where c holds under cios
+#define WHEN(c) if (EVERY_LANE || (c))
+
 #ifdef __CUDACC__
+#define THREADS 64                  // threads per block of every launch
 #define DEV __device__ __forceinline__
 #define DEVNI __device__ __noinline__
 #define DCONST __device__ const
@@ -91,6 +109,19 @@ DEV uint32_t addc(uint32_t a, uint32_t b) { return a + b + host_cf; }
 static unsigned long long host_mul_count;
 extern "C" unsigned long long fp381_mul_count() { return host_mul_count; }
 #define COUNT_MUL() (host_mul_count++)
+#endif
+
+// A thread's global stores: off for the padding threads of the mma
+// engine's shells (SHELL below), always on otherwise.
+#if MONT_ENGINE_MMA && defined(__CUDACC__)
+__shared__ uint8_t mma_live[THREADS];
+#define LIVE (mma_live[threadIdx.x] != 0)
+#else
+#define LIVE true
+#endif
+
+#if MONT_ENGINE_MMA
+#include "mma_digits.cuh"
 #endif
 
 // r = a - b over 12 words; returns 1 on borrow
@@ -165,8 +196,7 @@ DEV fp fp_neg(const fp& a) {
 DEV fp fp_dbl(const fp& a) { return fp_add(a, a); }
 
 // Montgomery product a * b * 2^-384 mod P (CIOS), inputs and output in [0, P)
-DEVNI fp fp_mul(const fp& a, const fp& b) {
-    COUNT_MUL();
+DEV fp fp_mul_cios(const fp& a, const fp& b) {
     uint32_t t[14];
     uint32_t p[12];
 #pragma unroll
@@ -207,6 +237,33 @@ DEVNI fp fp_mul(const fp& a, const fp& b) {
     return fp_reduce_once(r);
 }
 
+#if MONT_ENGINE_MMA
+// the same product from the tensor cores' columns (mma_digits.cuh)
+DEV fp fp_mul_mma(const fp& a, const fp& b) {
+    uint32_t t[25];
+    mma_product<12>(a.v, b.v, t);
+    t[24] = 0;
+    mma_redc<12>(t, K_P.v, N0);
+    fp r;
+#pragma unroll
+    for (int j = 0; j < 12; j++) r.v[j] = t[12 + j];
+    return fp_reduce_once(r);
+}
+#endif
+
+DEVNI fp fp_mul(const fp& a, const fp& b) {
+    COUNT_MUL();
+#if MONT_ENGINE_MMA && defined(__CUDACC__)
+    if (mma_warp_whole()) return fp_mul_mma(a, b);
+    mma_note_fallback();
+    return fp_mul_cios(a, b);
+#elif MONT_ENGINE_MMA
+    return fp_mul_mma(a, b);
+#else
+    return fp_mul_cios(a, b);
+#endif
+}
+
 DEV fp fp_sqr(const fp& a) { return fp_mul(a, a); }
 
 DEV fp fp_to_mont(const fp& a) { return fp_mul(a, K_R2); }
@@ -244,7 +301,8 @@ DEV fp fp_load(const int32_t* w) {
 
 DEV void fp_store(int32_t* w, const fp& a) {
     fp r = fp_from_mont(a);
-    for (int j = 0; j < 12; j++) w[j] = (int32_t)r.v[j];
+    if (LIVE)
+        for (int j = 0; j < 12; j++) w[j] = (int32_t)r.v[j];
 }
 
 // --------------------------------------------------------------------------
@@ -301,7 +359,7 @@ DEVNI fq2 fq2_sqrt(const fq2& a, bool* ok) {
     bool found = false;
     for (int i = 0; i < 4; i++) {
         fq2 c = i == 0 ? cand : fq2_mul(K_SQRT_ROOTS[i - 1], cand);
-        bool m = !found && fq2_eq(fq2_sqr(c), a);
+        bool m = (EVERY_LANE || !found) && fq2_eq(fq2_sqr(c), a) && !found;
         if (m) root = c;
         found = found || m;
     }
@@ -490,7 +548,11 @@ template <class F> DEVNI jac<F> pt_add(const jac<F>& p, const jac<F>& q) {
     bool same_x = f_is_zero(H), same_y = f_is_zero(sdiff);
     bool p_inf = f_is_zero(p.z), q_inf = f_is_zero(q.z);
     bool finite = !p_inf && !q_inf;
-    if (finite && same_x && same_y) out = pt_dbl(p);
+    bool dbl = finite && same_x && same_y;
+    WHEN(dbl) {
+        jac<F> d = pt_dbl(p);
+        if (dbl) out = d;
+    }
     if (finite && same_x && !same_y) f_set_zero(out.z);
     if (p_inf) out = q;
     if (q_inf && !p_inf) out = p;
@@ -630,12 +692,30 @@ DEV void g2_to_affine(const g2p& p, fq2* x, fq2* y) {
 }
 
 // A kernel is a per-thread body fn(i, args...) and, in the CUDA build, a
-// __global__ shell fn_kernel(n, args...) that calls it for i < n.
+// __global__ shell fn_kernel(n, args...) that calls it for i < n
+// (SHELL(n, fn(ix, args...))): under cios the threads past n return;
+// under mma they run the body on the last index with LIVE off, so every
+// warp stays whole through its products.
 // LAUNCH(n, fn, args...) runs it: one CUDA thread per i on the caller's
 // stream (the entry point's `stream` argument), or a plain loop in the
 // host build.
 #ifdef __CUDACC__
-#define THREADS 64
+#if MONT_ENGINE_MMA
+#define SHELL(n, call)                                                           \
+    do {                                                                         \
+        long i_ = (long)blockIdx.x * blockDim.x + threadIdx.x;                   \
+        mma_live[threadIdx.x] = i_ < (n);                                        \
+        long ix = i_ < (n) ? i_ : (n) - 1;                                       \
+        call;                                                                    \
+    } while (0)
+#else
+#define SHELL(n, call)                                                           \
+    do {                                                                         \
+        long ix = (long)blockIdx.x * blockDim.x + threadIdx.x;                   \
+        if (ix < (n)) call;                                                      \
+    } while (0)
+#endif
+
 #define LAUNCH(n, fn, ...)                                                       \
     do {                                                                         \
         long n_ = (n);                                                           \

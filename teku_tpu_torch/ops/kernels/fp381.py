@@ -1,32 +1,48 @@
-"""fp381.cu: the field and tower entry points, held against ops/limbs.py
-and ops/towers.py (not a stage of the verify pipeline)."""
+"""fp381.cu: the field and tower entry points, held against ops/limbs.py,
+ops/modfield.py and ops/towers.py (not a stage of the verify pipeline).
+fp_mul and fr_mul are each engine's Montgomery product alone: on the mma
+build, row 11's kernel (mma_digits.cuh)."""
 
 import torch
 
 from .. import _build
 from .. import limbs as fp
 from .. import towers as T
-from . import LAUNCHES, LONG, INT, check_tensor, lib, on_card, ptr
+from ..modfield import FR
+from . import (INT, LONG, check_tensor, count_launch, lib, lib_args, on_card,
+               plain_engine, ptr)
 
 OPS = {"fp_mul": (0, 1, 2), "fp_inv": (1, 1, 1), "fp_sqrt": (2, 1, 1),
        "fq2_mul": (3, 2, 2), "fq12_mul": (4, 12, 2)}   # code, Fq per elem, args
+FR_OPS = {"fr_mul": 5}                                 # code; Fr, 2 args
 
 
-def fp381_ops(op: str, a, b=None):
-    """Canonical words in ((n, 12 * width) flattened per element), out."""
+def _shape(op):
+    """(code, words per element, args) of an entry point."""
+    if op in FR_OPS:
+        return FR_OPS[op], FR.NW, 2
     code, width, nargs = OPS[op]
+    return code, 12 * width, nargs
+
+
+def fp381_ops(op: str, a, b=None, engine="cios"):
+    """Canonical words in ((n, 12 * width) flattened per element; fr_mul
+    (n, 8)), out."""
+    _, words, nargs = _shape(op)
     n = a.shape[0]
-    check_tensor(a, "a", torch.int32, (n, 12 * width), a.device)
+    check_tensor(a, "a", torch.int32, (n, words), a.device)
     if nargs == 2:
-        check_tensor(b, "b", torch.int32, (n, 12 * width), a.device)
+        check_tensor(b, "b", torch.int32, (n, words), a.device)
     if not on_card(a):
-        return fp381_ops_plain(op, a, b)
-    LAUNCHES["fp381_ops"] += 1
-    return _run(lib("fp381"), op, a, b)
+        with plain_engine(engine):
+            return fp381_ops_plain(op, a, b)
+    count_launch("fp381_ops", engine)
+    library = lib("fp381", **lib_args(engine))
+    return _run(library, op, a, b)
 
 
 def _run(library, op, a, b=None):
-    code = OPS[op][0]
+    code = _shape(op)[0]
     out = torch.empty_like(a)
     bb = a if b is None else b
     _build.check(library.fp381_ops(INT(code), ptr(a), ptr(bb), ptr(out),
@@ -37,6 +53,8 @@ def _run(library, op, a, b=None):
 
 def fp381_ops_plain(op: str, a, b=None):
     n = a.shape[0]
+    if op in FR_OPS:
+        return FR.to_words(FR.mont_mul(FR.from_words(a), FR.from_words(b)))
     width = OPS[op][1]
     x = fp.from_words(a.reshape(n, width, 12))
     y = None if b is None else fp.from_words(b.reshape(n, width, 12))

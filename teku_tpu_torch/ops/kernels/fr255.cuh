@@ -85,8 +85,7 @@ DEV fr fr_sub(const fr& a, const fr& b) {
 
 // Montgomery product a * b * 2^-256 mod r (CIOS), inputs < 2^256, output in
 // [0, r): t < (a b) / 2^256 + r < 2r before the last subtraction
-DEVNI fr fr_mul(const fr& a, const fr& b) {
-    COUNT_FR_MUL();
+DEV fr fr_mul_cios(const fr& a, const fr& b) {
     uint32_t t[10];
     uint32_t m_[8];
 #pragma unroll
@@ -125,6 +124,34 @@ DEVNI fr fr_mul(const fr& a, const fr& b) {
     return fr_reduce_once(r);
 }
 
+#if MONT_ENGINE_MMA
+// the same product from the tensor cores' columns (mma_digits.cuh);
+// inputs in [0, r)
+DEV fr fr_mul_mma(const fr& a, const fr& b) {
+    uint32_t t[17];
+    mma_product<8>(a.v, b.v, t);
+    t[16] = 0;
+    mma_redc<8>(t, FR_M.v, FR_N0);
+    fr r;
+#pragma unroll
+    for (int j = 0; j < 8; j++) r.v[j] = t[8 + j];
+    return fr_reduce_once(r);
+}
+#endif
+
+DEVNI fr fr_mul(const fr& a, const fr& b) {
+    COUNT_FR_MUL();
+#if MONT_ENGINE_MMA && defined(__CUDACC__)
+    if (mma_warp_whole()) return fr_mul_mma(a, b);
+    mma_note_fallback();
+    return fr_mul_cios(a, b);
+#elif MONT_ENGINE_MMA
+    return fr_mul_mma(a, b);
+#else
+    return fr_mul_cios(a, b);
+#endif
+}
+
 DEV fr fr_sqr(const fr& a) { return fr_mul(a, a); }
 
 // a^e, e given as nbits bits in little-endian 32-bit words
@@ -149,5 +176,6 @@ DEV void fr_store(int32_t* w, const fr& a) {
     fr one = fr_zero();
     one.v[0] = 1;
     fr r = fr_mul(a, one);
-    for (int j = 0; j < 8; j++) w[j] = (int32_t)r.v[j];
+    if (LIVE)
+        for (int j = 0; j < 8; j++) w[j] = (int32_t)r.v[j];
 }

@@ -40,15 +40,19 @@ DEVNI e_aff map_draw(const fq2& u) {
     fq2 y1 = cand, y2 = cand2;
     for (int r = 0; r < 4; r++) {
         fq2 t1 = r == 0 ? cand : fq2_mul(K_SQRT_ROOTS[r - 1], cand);
-        bool m1 = !found1 && fq2_eq(fq2_sqr(t1), gval);
+        bool m1 = (EVERY_LANE || !found1) && fq2_eq(fq2_sqr(t1), gval) && !found1;
         if (m1) y1 = t1;
         found1 = found1 || m1;
         fq2 t2 = r == 0 ? cand2 : fq2_mul(K_SQRT_ROOTS[r - 1], cand2);
-        bool m2 = !found2 && fq2_eq(fq2_sqr(t2), gval2);
+        bool m2 = (EVERY_LANE || !found2) && fq2_eq(fq2_sqr(t2), gval2) && !found2;
         if (m2) y2 = t2;
         found2 = found2 || m2;
     }
-    fq2 xn = found1 ? x1n : fq2_mul(tv, x1n);
+    fq2 xn = x1n;
+    WHEN(!found1) {
+        fq2 t = fq2_mul(tv, x1n);
+        if (!found1) xn = t;
+    }
     fq2 yp = found1 ? y1 : y2;
 
     // 3-isogeny, homogeneous in (xn, xd): x = XN / XD, y = YN / YD
@@ -107,8 +111,7 @@ DEVNI void h2c_row(long i, const int32_t* u0, const int32_t* u1, int32_t* out) {
 
 #ifdef __CUDACC__
 __global__ void h2c_row_kernel(long n, const int32_t* u0, const int32_t* u1, int32_t* out) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) h2c_row(i, u0, u1, out);
+    SHELL(n, h2c_row(ix, u0, u1, out));
 }
 #endif
 

@@ -5,20 +5,23 @@ import torch
 
 from .. import _build
 from .. import verify as V
-from . import LAUNCHES, LONG, check_tensor, lib, on_card, ptr
+from . import (LONG, check_tensor, count_launch, lib, lib_args, on_card,
+               plain_engine, ptr)
 from .decompress import g2_from_words, g2_to_words
 
 
-def h2c(u0, u1):
+def h2c(u0, u1, engine="cios"):
     """u0, u1: (n, 2, 12) canonical words of each row's two Fq2 draws.
     Returns the affine H(m) points, (n, 2, 2, 12) words."""
     n = u0.shape[0]
     check_tensor(u0, "u0", torch.int32, (n, 2, 12), u0.device)
     check_tensor(u1, "u1", torch.int32, (n, 2, 12), u0.device)
     if not on_card(u0):
-        return h2c_plain(u0, u1)
-    LAUNCHES["h2c"] += 1
-    return _run_h2c(lib("h2c"), u0, u1)
+        with plain_engine(engine):
+            return h2c_plain(u0, u1)
+    count_launch("h2c", engine)
+    library = lib("h2c", **lib_args(engine))
+    return _run_h2c(library, u0, u1)
 
 
 def _run_h2c(library, u0, u1):

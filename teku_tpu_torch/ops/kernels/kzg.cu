@@ -47,7 +47,7 @@ DEVNI void eval_part(long t, const int32_t* poly, const int32_t* z, const int32_
         num[j] = fr_mul(fr_load(poly + 8 * (b * n + i)), w);
         den[j] = fr_sub(zm, w);
         if (fr_is_zero(den[j])) {       // z == w_i: this term is 0
-            hit[b] = (int32_t)i;
+            if (LIVE) hit[b] = (int32_t)i;
             num[j] = fr_zero();
             den[j] = FR_ONE;
         }
@@ -60,7 +60,7 @@ DEVNI void eval_part(long t, const int32_t* poly, const int32_t* z, const int32_
         sum = fr_add(sum, fr_mul(num[j], fr_mul(inv, pre[j])));
         inv = fr_mul(inv, den[j]);
     }
-    part[t] = sum;
+    if (LIVE) part[t] = sum;
 }
 
 DEVNI void eval_final(long b, const int32_t* poly, const int32_t* z, const fr* part,
@@ -74,21 +74,23 @@ DEVNI void eval_final(long b, const int32_t* poly, const int32_t* z, const fr* p
         inv_n = fr_mul(inv_n, FR_INV_2);
     }
     fr out = fr_mul(sum, fr_mul(fr_sub(zn, FR_ONE), inv_n));
-    if (hit[b] >= 0) out = fr_load(poly + 8 * (b * n + hit[b]));
+    long h = hit[b];
+    WHEN(h >= 0) {
+        fr at_root = fr_load(poly + 8 * (b * n + (h >= 0 ? h : 0)));
+        if (h >= 0) out = at_root;
+    }
     fr_store(y + 8 * b, out);
 }
 
 #ifdef __CUDACC__
 __global__ void eval_part_kernel(long m, const int32_t* poly, const int32_t* z,
                                  const int32_t* roots, fr* part, int32_t* hit, long n) {
-    long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t < m) eval_part(t, poly, z, roots, part, hit, n);
+    SHELL(m, eval_part(ix, poly, z, roots, part, hit, n));
 }
 
 __global__ void eval_final_kernel(long m, const int32_t* poly, const int32_t* z,
                                   const fr* part, const int32_t* hit, int32_t* y, long n) {
-    long b = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (b < m) eval_final(b, poly, z, part, hit, y, n);
+    SHELL(m, eval_final(ix, poly, z, part, hit, y, n));
 }
 #endif
 
@@ -120,10 +122,12 @@ DEVNI g1p g1_mul_words(const g1p& p, const uint32_t* s) {
 
 DEV g1p g1_affine_load(const int32_t* xs, const int32_t* ys, long i, bool use) {
     g1p p = pt_infinity<fp>();
-    if (use) {
-        p.x = fp_load(xs + 12 * i);
-        p.y = fp_load(ys + 12 * i);
-        p.z = K_ONE;
+    WHEN(use) {
+        g1p q;
+        q.x = fp_load(xs + 12 * i);
+        q.y = fp_load(ys + 12 * i);
+        q.z = K_ONE;
+        if (use) p = q;
     }
     return p;
 }
@@ -136,14 +140,16 @@ DEV void scalar_load(const int32_t* scalars, long i, uint32_t* s) {
 DEVNI void g1_sum_pass(long i, g1p* x, long n, long half, long off) {
     g1p* g = x + (i / half) * n;
     long j = i % half;
-    g[j] = pt_add(g[j], g[j + off]);
+    g1p s = pt_add(g[j], g[j + off]);
+    if (LIVE) g[j] = s;
 }
 
 DEVNI void msm_lane(long i, const int32_t* xs, const int32_t* ys, const uint8_t* present,
                     const int32_t* scalars, g1p* acc) {
     uint32_t s[8];
     scalar_load(scalars, i, s);
-    acc[i] = g1_mul_words(g1_affine_load(xs, ys, i, present[i] != 0), s);
+    g1p p = g1_mul_words(g1_affine_load(xs, ys, i, present[i] != 0), s);
+    if (LIVE) acc[i] = p;
 }
 
 DEVNI void msm_out(long i, const g1p* acc, uint8_t* inf, int32_t* xy) {
@@ -151,7 +157,7 @@ DEVNI void msm_out(long i, const g1p* acc, uint8_t* inf, int32_t* xy) {
     g1_to_affine(acc[0], &x, &y);       // infinity -> (0, 0)
     fp_store(xy, x);
     fp_store(xy + 12, y);
-    inf[0] = pt_is_inf(acc[0]) ? 1 : 0;
+    if (LIVE) inf[0] = pt_is_inf(acc[0]) ? 1 : 0;
 }
 
 DEVNI void fold_lane(long i, const int32_t* xs, const int32_t* ys, const uint8_t* inf,
@@ -161,8 +167,10 @@ DEVNI void fold_lane(long i, const int32_t* xs, const int32_t* ys, const uint8_t
     scalar_load(scalars, i, s);
     g1p w = g1_mul_words(g1_affine_load(xs, ys, i, valid[i] && !inf[i]), s);
     bool in_b = group_b[i] != 0;
-    acc[i] = valid[i] && !in_b ? w : pt_infinity<fp>();
-    acc[n + i] = valid[i] && in_b ? w : pt_infinity<fp>();
+    if (LIVE) {
+        acc[i] = valid[i] && !in_b ? w : pt_infinity<fp>();
+        acc[n + i] = valid[i] && in_b ? w : pt_infinity<fp>();
+    }
 }
 
 // group g's sum (b negated) to affine, and its Miller loop against g2[g]
@@ -175,50 +183,48 @@ DEVNI void fold_pair(long g, const g1p* acc, long n, const int32_t* g2, int32_t*
     g1_to_affine(s, &x, &y);
     fp_store(pair + 24 * g, x);
     fp_store(pair + 24 * g + 12, y);
-    pair_inf[g] = is_inf ? 1 : 0;
+    if (LIVE) pair_inf[g] = is_inf ? 1 : 0;
     fq12 f = fq12_one();
-    if (!is_inf) f = miller_loop(x, y, fq2_load(g2 + 48 * g), fq2_load(g2 + 48 * g + 24));
-    ml[g] = f;
+    WHEN(!is_inf) {
+        fq12 m = miller_loop(x, y, fq2_load(g2 + 48 * g), fq2_load(g2 + 48 * g + 24));
+        if (!is_inf) f = m;
+    }
+    if (LIVE) ml[g] = f;
 }
 
 DEVNI void fold_verdict(long i, const fq12* ml, uint8_t* ok) {
-    ok[0] = fq12_is_one(final_exponentiation(fq12_mul(ml[0], ml[1]))) ? 1 : 0;
+    bool one = fq12_is_one(final_exponentiation(fq12_mul(ml[0], ml[1])));
+    if (LIVE) ok[0] = one ? 1 : 0;
 }
 
 #ifdef __CUDACC__
 __global__ void g1_sum_pass_kernel(long m, g1p* x, long n, long half, long off) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < m) g1_sum_pass(i, x, n, half, off);
+    SHELL(m, g1_sum_pass(ix, x, n, half, off));
 }
 
 __global__ void msm_lane_kernel(long n, const int32_t* xs, const int32_t* ys,
                                 const uint8_t* present, const int32_t* scalars, g1p* acc) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) msm_lane(i, xs, ys, present, scalars, acc);
+    SHELL(n, msm_lane(ix, xs, ys, present, scalars, acc));
 }
 
 __global__ void msm_out_kernel(long n, const g1p* acc, uint8_t* inf, int32_t* xy) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) msm_out(i, acc, inf, xy);
+    SHELL(n, msm_out(ix, acc, inf, xy));
 }
 
 __global__ void fold_lane_kernel(long m, const int32_t* xs, const int32_t* ys,
                                  const uint8_t* inf, const uint8_t* valid,
                                  const uint8_t* group_b, const int32_t* scalars, g1p* acc,
                                  long n) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < m) fold_lane(i, xs, ys, inf, valid, group_b, scalars, acc, n);
+    SHELL(m, fold_lane(ix, xs, ys, inf, valid, group_b, scalars, acc, n));
 }
 
 __global__ void fold_pair_kernel(long m, const g1p* acc, long n, const int32_t* g2,
                                  int32_t* pair, uint8_t* pair_inf, fq12* ml) {
-    long g = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (g < m) fold_pair(g, acc, n, g2, pair, pair_inf, ml);
+    SHELL(m, fold_pair(ix, acc, n, g2, pair, pair_inf, ml));
 }
 
 __global__ void fold_verdict_kernel(long m, const fq12* ml, uint8_t* ok) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < m) fold_verdict(i, ml, ok);
+    SHELL(m, fold_verdict(ix, ml, ok));
 }
 #endif
 

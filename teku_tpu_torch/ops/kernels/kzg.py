@@ -18,7 +18,8 @@ from .. import pairing as PR
 from .. import points as PT
 from .. import verify as V
 from ..modfield import FR
-from . import LAUNCHES, LONG, check_tensor, lib, on_card, ptr
+from . import (LONG, check_tensor, count_launch, lib, lib_args, on_card,
+               plain_engine, ptr)
 
 EVAL_PER = 16                # kzg.cu: points per thread
 SCALAR_BITS = 256            # scalars cross as 8 words; Fr values < 2^255
@@ -93,7 +94,7 @@ def msm(xs, ys, present, bits):
 # kzg_eval
 # --------------------------------------------------------------------------
 
-def kzg_eval(poly, z, roots):
+def kzg_eval(poly, z, roots, engine="cios"):
     """poly (B, n, 8), z (B, 8), roots (n, 8): canonical plain Fr words
     (int32 bit patterns), n a power of two >= 16.  Returns y = p(z),
     (B, 8) words."""
@@ -106,9 +107,11 @@ def kzg_eval(poly, z, roots):
     check_tensor(z, "z", torch.int32, (b, 8), dev)
     check_tensor(roots, "roots", torch.int32, (n, 8), dev)
     if not on_card(poly):
-        return kzg_eval_plain(poly, z, roots)
-    LAUNCHES["kzg_eval"] += 1
-    return _run_kzg_eval(lib("kzg"), poly, z, roots)
+        with plain_engine(engine):
+            return kzg_eval_plain(poly, z, roots)
+    count_launch("kzg_eval", engine)
+    library = lib("kzg", **lib_args(engine))
+    return _run_kzg_eval(library, poly, z, roots)
 
 
 def _run_kzg_eval(library, poly, z, roots):
@@ -133,7 +136,7 @@ def kzg_eval_plain(poly, z, roots):
 # kzg_fold
 # --------------------------------------------------------------------------
 
-def kzg_fold(xs, ys, inf, valid, group_b, scalars, g2):
+def kzg_fold(xs, ys, inf, valid, group_b, scalars, g2, engine="cios"):
     """xs/ys (n, 12) affine G1 words; inf/valid/group_b (n,); scalars
     (n, 8) words; g2 (2, 2, 2, 12): [G2, sG2] affine (x, y) x (c0, c1)
     words.  Returns (verdict (1,), the two affine sums (2, 2, 12) words --
@@ -150,9 +153,11 @@ def kzg_fold(xs, ys, inf, valid, group_b, scalars, g2):
     if n < 1:
         raise ValueError("kzg_fold needs at least one lane")
     if not on_card(xs):
-        return kzg_fold_plain(xs, ys, inf, valid, group_b, scalars, g2)
-    LAUNCHES["kzg_fold"] += 1
-    return _run_kzg_fold(lib("kzg"), xs, ys, inf, valid, group_b, scalars,
+        with plain_engine(engine):
+            return kzg_fold_plain(xs, ys, inf, valid, group_b, scalars, g2)
+    count_launch("kzg_fold", engine)
+    library = lib("kzg", **lib_args(engine))
+    return _run_kzg_fold(library, xs, ys, inf, valid, group_b, scalars,
                          g2)
 
 
@@ -185,7 +190,7 @@ def kzg_fold_plain(xs, ys, inf, valid, group_b, scalars, g2):
 # kzg_msm
 # --------------------------------------------------------------------------
 
-def kzg_msm(xs, ys, present, scalars):
+def kzg_msm(xs, ys, present, scalars, engine="cios"):
     """xs/ys (n, 12) affine G1 words, present (n,), scalars (n, 8) words.
     Returns (infinity flag (1,), affine sum (2, 12) words, (0, 0) at
     infinity)."""
@@ -199,9 +204,11 @@ def kzg_msm(xs, ys, present, scalars):
     if n < 1:
         raise ValueError("kzg_msm needs at least one lane")
     if not on_card(xs):
-        return kzg_msm_plain(xs, ys, present, scalars)
-    LAUNCHES["kzg_msm"] += 1
-    return _run_kzg_msm(lib("kzg"), xs, ys, present, scalars)
+        with plain_engine(engine):
+            return kzg_msm_plain(xs, ys, present, scalars)
+    count_launch("kzg_msm", engine)
+    library = lib("kzg", **lib_args(engine))
+    return _run_kzg_msm(library, xs, ys, present, scalars)
 
 
 def _run_kzg_msm(library, xs, ys, present, scalars):

@@ -73,11 +73,15 @@ DEVNI void msm_columns(long i, const int32_t* pk_jac, const int32_t* sig_jac,
                        const uint8_t* miller_mask, g1p* cols1, g2p* cols2, long n) {
     g1p p = g1_load(pk_jac + 36 * i);
     if (!miller_mask[i]) p = pt_infinity<fp>();
-    cols1[i] = p;
-    cols1[n + i] = g1_phi(p);
+    g1p phi = g1_phi(p);
     g2p q = g2_load(sig_jac + 72 * i);
-    cols2[i] = q;
-    cols2[n + i] = g2_lambda(q);
+    g2p lam = g2_lambda(q);
+    if (LIVE) {
+        cols1[i] = p;
+        cols1[n + i] = phi;
+        cols2[i] = q;
+        cols2[n + i] = lam;
+    }
 }
 
 // row u = t / NWIN, window j = t % NWIN; column c < G is lane
@@ -95,12 +99,13 @@ DEVNI void g1_window(long t, const g1p* cols1, const int32_t* digits, const int3
         bucket_add(table, cols1[half * n + lane], digits[(lane * 2 + half) * MSM_NWIN + j],
                    group_present[s] != 0);
     }
-    wsum1[t] = bucket_reduce(table);
+    g1p sum = bucket_reduce(table);
+    if (LIVE) wsum1[t] = sum;
 }
 
 DEVNI void g1_row(long u, const g1p* wsum1, int32_t* agg, uint8_t* u_mask) {
     g1p acc = window_combine(wsum1 + u * MSM_NWIN);
-    u_mask[u] = pt_is_inf(acc) ? 0 : 1;
+    if (LIVE) u_mask[u] = pt_is_inf(acc) ? 0 : 1;
     fp x, y;
     g1_to_affine(acc, &x, &y);
     fp_store(agg + 24 * u, x);
@@ -121,17 +126,20 @@ DEVNI void g2_segment(long t, const g2p* cols2, const int32_t* digits, long seg,
         long lane = col - half * n;
         bucket_add(table, cols2[col], digits[(lane * 2 + half) * MSM_NWIN + j], true);
     }
-    for (int b = 0; b < MSM_B; b++) tables[t * MSM_B + b] = table[b];
+    if (LIVE)
+        for (int b = 0; b < MSM_B; b++) tables[t * MSM_B + b] = table[b];
 }
 
 // tables[i] += tables[i + half] for segment i < half, per (window, bucket)
 DEVNI void g2_merge(long t, g2p* tables, long half) {
     long k = t + half * MSM_NWIN * MSM_B;
-    tables[t] = pt_add(tables[t], tables[k]);
+    g2p sum = pt_add(tables[t], tables[k]);
+    if (LIVE) tables[t] = sum;
 }
 
 DEVNI void g2_window(long j, const g2p* tables, g2p* wsum2) {
-    wsum2[j] = bucket_reduce(tables + j * MSM_B);
+    g2p sum = bucket_reduce(tables + j * MSM_B);
+    if (LIVE) wsum2[j] = sum;
 }
 
 DEVNI void g2_combine(long i, const g2p* wsum2, int32_t* wsig) {
@@ -141,41 +149,34 @@ DEVNI void g2_combine(long i, const g2p* wsum2, int32_t* wsig) {
 #ifdef __CUDACC__
 __global__ void msm_columns_kernel(long m, const int32_t* pk_jac, const int32_t* sig_jac,
                                    const uint8_t* miller_mask, g1p* cols1, g2p* cols2, long n) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < m) msm_columns(i, pk_jac, sig_jac, miller_mask, cols1, cols2, n);
+    SHELL(m, msm_columns(ix, pk_jac, sig_jac, miller_mask, cols1, cols2, n));
 }
 
 __global__ void g1_window_kernel(long m, const g1p* cols1, const int32_t* digits,
                                  const int32_t* group_idx, const uint8_t* group_present, int g,
                                  g1p* wsum1, long n) {
-    long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t < m) g1_window(t, cols1, digits, group_idx, group_present, g, wsum1, n);
+    SHELL(m, g1_window(ix, cols1, digits, group_idx, group_present, g, wsum1, n));
 }
 
 __global__ void g1_row_kernel(long m, const g1p* wsum1, int32_t* agg, uint8_t* u_mask) {
-    long u = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (u < m) g1_row(u, wsum1, agg, u_mask);
+    SHELL(m, g1_row(ix, wsum1, agg, u_mask));
 }
 
 __global__ void g2_segment_kernel(long m, const g2p* cols2, const int32_t* digits, long seg,
                                   g2p* tables, long n) {
-    long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t < m) g2_segment(t, cols2, digits, seg, tables, n);
+    SHELL(m, g2_segment(ix, cols2, digits, seg, tables, n));
 }
 
 __global__ void g2_merge_kernel(long m, g2p* tables, long half) {
-    long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t < m) g2_merge(t, tables, half);
+    SHELL(m, g2_merge(ix, tables, half));
 }
 
 __global__ void g2_window_kernel(long m, const g2p* tables, g2p* wsum2) {
-    long j = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (j < m) g2_window(j, tables, wsum2);
+    SHELL(m, g2_window(ix, tables, wsum2));
 }
 
 __global__ void g2_combine_kernel(long m, const g2p* wsum2, int32_t* wsig) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < m) g2_combine(i, wsum2, wsig);
+    SHELL(m, g2_combine(ix, wsum2, wsig));
 }
 #endif
 

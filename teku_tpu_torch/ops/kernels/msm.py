@@ -7,14 +7,15 @@ import torch
 from .. import _build
 from .. import msm as MSM
 from .. import verify as V
-from . import LAUNCHES, INT, LONG, check_tensor, lib, on_card, ptr
+from . import (INT, LONG, check_tensor, count_launch, lib, lib_args, on_card,
+               plain_engine, ptr)
 from .decompress import g1_from_words, g1_to_words, g2_from_words, g2_to_words
 
 NWIN = MSM.n_windows(MSM.WINDOW)      # msm.cu is built for 4-bit digits
 
 
 def scalars_msm(pk_jac, sig_jac, glv_digits, miller_mask, group_idx,
-                group_present):
+                group_present, engine="cios"):
     """pk_jac (n, 3, 12), sig_jac (n, 3, 2, 12) words; glv_digits
     (n, 2, 8) int32 4-bit digits of (k1, k2), MSB first; miller_mask
     (n,); group_idx / group_present (rows, g); n a power of two.
@@ -34,10 +35,12 @@ def scalars_msm(pk_jac, sig_jac, glv_digits, miller_mask, group_idx,
     if n < 1 or n & (n - 1):
         raise ValueError(f"lanes {n} is not a power of two")
     if not on_card(pk_jac):
-        return scalars_msm_plain(pk_jac, sig_jac, glv_digits, miller_mask,
-                                 group_idx, group_present)
-    LAUNCHES["scalars_msm"] += 1
-    return _run_scalars_msm(lib("msm"), pk_jac, sig_jac, glv_digits,
+        with plain_engine(engine):
+            return scalars_msm_plain(pk_jac, sig_jac, glv_digits, miller_mask,
+                                     group_idx, group_present)
+    count_launch("scalars_msm", engine)
+    library = lib("msm", **lib_args(engine))
+    return _run_scalars_msm(library, pk_jac, sig_jac, glv_digits,
                             miller_mask, group_idx, group_present)
 
 

@@ -20,17 +20,19 @@
 DEVNI void miller_row(long i, const int32_t* agg, const int32_t* hm, const uint8_t* mask,
                       int32_t* out) {
     fq12 f = fq12_one();
-    if (mask[i])
-        f = miller_loop(fp_load(agg + 24 * i), fp_load(agg + 24 * i + 12),
-                        fq2_load(hm + 48 * i), fq2_load(hm + 48 * i + 24));
+    bool use = mask[i] != 0;
+    WHEN(use) {
+        fq12 m = miller_loop(fp_load(agg + 24 * i), fp_load(agg + 24 * i + 12),
+                             fq2_load(hm + 48 * i), fq2_load(hm + 48 * i + 24));
+        if (use) f = m;
+    }
     fq12_store(out + 144 * i, f);
 }
 
 #ifdef __CUDACC__
 __global__ void miller_row_kernel(long n, const int32_t* agg, const int32_t* hm,
                                   const uint8_t* mask, int32_t* out) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) miller_row(i, agg, hm, mask, out);
+    SHELL(n, miller_row(ix, agg, hm, mask, out));
 }
 #endif
 
@@ -43,19 +45,21 @@ extern "C" int miller(const int32_t* agg, const int32_t* hm, const uint8_t* mask
 DEVNI void finish_one(long i, const int32_t* ml_prod, const int32_t* s_sum, uint8_t* ok) {
     g2p s = g2_load(s_sum);
     fq12 f = fq12_load(ml_prod);
-    if (!pt_is_inf(s)) {
+    bool finite = !pt_is_inf(s);
+    WHEN(finite) {
         fq2 x, y;
         g2_to_affine(s, &x, &y);
-        f = fq12_mul(f, miller_loop(K_NEG_G1_X, K_NEG_G1_Y, x, y));
+        fq12 g = fq12_mul(f, miller_loop(K_NEG_G1_X, K_NEG_G1_Y, x, y));
+        if (finite) f = g;
     }
-    ok[0] = fq12_is_one(final_exponentiation(f)) ? 1 : 0;
+    bool one = fq12_is_one(final_exponentiation(f));
+    if (LIVE) ok[0] = one ? 1 : 0;
 }
 
 #ifdef __CUDACC__
 __global__ void finish_one_kernel(long n, const int32_t* ml_prod, const int32_t* s_sum,
                                   uint8_t* ok) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) finish_one(i, ml_prod, s_sum, ok);
+    SHELL(n, finish_one(ix, ml_prod, s_sum, ok));
 }
 #endif
 

@@ -119,23 +119,20 @@ DEVNI void g2_sum_pass(long i, int32_t* x, long half) {
 
 // one thread per word: row n - 1 -> row n / 2 (n odd)
 DEVNI void tail_pass(long w, int32_t* x, long n, long width) {
-    x[(n / 2) * width + w] = x[(n - 1) * width + w];
+    if (LIVE) x[(n / 2) * width + w] = x[(n - 1) * width + w];
 }
 
 #ifdef __CUDACC__
 __global__ void fq12_prod_pass_kernel(long n, int32_t* x, long half) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) fq12_prod_pass(i, x, half);
+    SHELL(n, fq12_prod_pass(ix, x, half));
 }
 
 __global__ void g2_sum_pass_kernel(long n, int32_t* x, long half) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) g2_sum_pass(i, x, half);
+    SHELL(n, g2_sum_pass(ix, x, half));
 }
 
 __global__ void tail_pass_kernel(long n_words, int32_t* x, long n, long width) {
-    long w = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (w < n_words) tail_pass(w, x, n, width);
+    SHELL(n_words, tail_pass(ix, x, n, width));
 }
 #endif
 

@@ -8,11 +8,12 @@ import torch
 from .. import _build
 from .. import towers as T
 from .. import verify as V
-from . import LAUNCHES, LONG, check_tensor, lib, on_card, ptr
+from . import (LONG, check_tensor, count_launch, lib, lib_args, on_card,
+               plain_engine, ptr)
 from .decompress import g1_from_words, g2_from_words
 
 
-def miller(agg, hm, mask):
+def miller(agg, hm, mask, engine="cios"):
     """agg (n, 2, 12) affine G1 words, hm (n, 2, 2, 12) affine G2 words,
     mask (n,).  Returns the Miller values, (n, 12, 12) words (ONE where
     mask is False)."""
@@ -21,9 +22,11 @@ def miller(agg, hm, mask):
     check_tensor(hm, "hm", torch.int32, (n, 2, 2, 12), agg.device)
     check_tensor(mask, "mask", torch.bool, (n,), agg.device)
     if not on_card(agg):
-        return miller_plain(agg, hm, mask)
-    LAUNCHES["miller"] += 1
-    return _run_miller(lib("pairing"), agg, hm, mask)
+        with plain_engine(engine):
+            return miller_plain(agg, hm, mask)
+    count_launch("miller", engine)
+    library = lib("pairing", **lib_args(engine))
+    return _run_miller(library, agg, hm, mask)
 
 
 def _run_miller(library, agg, hm, mask):
@@ -40,7 +43,7 @@ def miller_plain(agg, hm, mask):
     return T.fq12_to_words(V.stage_miller(p, q, mask))
 
 
-def finish(ml, wsig):
+def finish(ml, wsig, engine="cios"):
     """ml (rows, 12, 12) Miller words, wsig (n, 3, 2, 12) weighted
     signatures.  Returns the batch verdict, a (1,) bool tensor."""
     rows, n = ml.shape[0], wsig.shape[0]
@@ -49,9 +52,11 @@ def finish(ml, wsig):
     if rows < 1 or n < 1:
         raise ValueError("finish needs at least one row and one lane")
     if not on_card(ml):
-        return finish_plain(ml, wsig)
-    LAUNCHES["finish"] += 1
-    return _run_finish(lib("pairing"), ml, wsig)
+        with plain_engine(engine):
+            return finish_plain(ml, wsig)
+    count_launch("finish", engine)
+    library = lib("pairing", **lib_args(engine))
+    return _run_finish(library, ml, wsig)
 
 
 def _run_finish(library, ml, wsig):

@@ -17,6 +17,14 @@
 
 #include "fp381.cuh"
 
+// threads per ladder group: n, or under the mma engine n rounded up to a
+// warp (the G1 and G2 ladders then never share a warp)
+#if MONT_ENGINE_MMA && defined(__CUDACC__)
+#define LADDER_HALF(n) (((n) + 31) / 32 * 32)
+#else
+#define LADDER_HALF(n) (n)
+#endif
+
 // [r]pk goes to the Montgomery scratch (scalars_group) or, as Jacobian
 // words, to pk_r_words (scalars)
 DEVNI void ladder(long i, const int32_t* pk_jac, const int32_t* sig_jac, const int64_t* r,
@@ -24,7 +32,7 @@ DEVNI void ladder(long i, const int32_t* pk_jac, const int32_t* sig_jac, const i
     if (i < n) {
         g1p p = pt_mul_u64(g1_load(pk_jac + 36 * i), (uint64_t)r[i]);
         if (pk_r_words) g1_store(pk_r_words + 36 * i, p);
-        else pk_r[i] = p;
+        else if (LIVE) pk_r[i] = p;
     } else {
         long j = i - n;
         g2_store(wsig + 72 * j, pt_mul_u64(g2_load(sig_jac + 72 * j), (uint64_t)r[j]));
@@ -38,9 +46,13 @@ DEVNI void group_row(long u, const g1p* pk_r, const uint8_t* miller_mask,
     for (int c = 0; c < g; c++) {
         long s = u * g + c;
         int lane = group_idx[s];
-        if (group_present[s] && miller_mask[lane]) acc = pt_add(acc, pk_r[lane]);
+        bool use = group_present[s] && miller_mask[lane];
+        WHEN(use) {
+            g1p sum = pt_add(acc, pk_r[lane]);
+            if (use) acc = sum;
+        }
     }
-    u_mask[u] = pt_is_inf(acc) ? 0 : 1;
+    if (LIVE) u_mask[u] = pt_is_inf(acc) ? 0 : 1;
     fp x, y;
     g1_to_affine(acc, &x, &y);
     fp_store(agg + 24 * u, x);
@@ -51,15 +63,25 @@ DEVNI void group_row(long u, const g1p* pk_r, const uint8_t* miller_mask,
 __global__ void ladder_kernel(long m, const int32_t* pk_jac, const int32_t* sig_jac,
                               const int64_t* r, g1p* pk_r, int32_t* pk_r_words, int32_t* wsig,
                               long n) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < m) ladder(i, pk_jac, sig_jac, r, pk_r, pk_r_words, wsig, n);
+#if MONT_ENGINE_MMA
+    // G1 ladders on threads [0, m/2), G2 on [m/2, m), m/2 = n rounded up
+    // to a warp: each warp runs ladders of one group; past n, the last
+    // lane's with the stores off
+    long i_ = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    bool g2 = i_ >= m / 2;
+    long j = g2 ? i_ - m / 2 : i_;
+    mma_live[threadIdx.x] = j < n;
+    long jc = j < n ? j : n - 1;
+    ladder(g2 ? n + jc : jc, pk_jac, sig_jac, r, pk_r, pk_r_words, wsig, n);
+#else
+    SHELL(m, ladder(ix, pk_jac, sig_jac, r, pk_r, pk_r_words, wsig, n));
+#endif
 }
 
 __global__ void group_row_kernel(long rows, const g1p* pk_r, const uint8_t* miller_mask,
                                  const int32_t* group_idx, const uint8_t* group_present, int g,
                                  int32_t* agg, uint8_t* u_mask) {
-    long u = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (u < rows) group_row(u, pk_r, miller_mask, group_idx, group_present, g, agg, u_mask);
+    SHELL(rows, group_row(ix, pk_r, miller_mask, group_idx, group_present, g, agg, u_mask));
 }
 #endif
 
@@ -68,7 +90,7 @@ extern "C" int scalars_group(const int32_t* pk_jac, const int32_t* sig_jac, cons
                              const uint8_t* miller_mask, const int32_t* group_idx,
                              const uint8_t* group_present, int g, void* scratch, int32_t* agg,
                              uint8_t* u_mask, int32_t* wsig, long n, long rows, void* stream) {
-    LAUNCH(2 * n, ladder, pk_jac, sig_jac, r, (g1p*)scratch, (int32_t*)0, wsig, n);
+    LAUNCH(2 * LADDER_HALF(n), ladder, pk_jac, sig_jac, r, (g1p*)scratch, (int32_t*)0, wsig, n);
     LAUNCH(rows, group_row, (const g1p*)scratch, miller_mask, group_idx, group_present, g, agg,
            u_mask);
     return 0;
@@ -79,6 +101,6 @@ extern "C" int scalars_group(const int32_t* pk_jac, const int32_t* sig_jac, cons
 // lane_affine (shard.cu) follows
 extern "C" int scalars(const int32_t* pk_jac, const int32_t* sig_jac, const int64_t* r,
                        int32_t* pk_r, int32_t* wsig, long n, void* stream) {
-    LAUNCH(2 * n, ladder, pk_jac, sig_jac, r, (g1p*)0, pk_r, wsig, n);
+    LAUNCH(2 * LADDER_HALF(n), ladder, pk_jac, sig_jac, r, (g1p*)0, pk_r, wsig, n);
     return 0;
 }

@@ -8,11 +8,13 @@ import torch
 from .. import _build
 from .. import points as PT
 from .. import verify as V
-from . import LAUNCHES, INT, LONG, check_tensor, lib, on_card, ptr
+from . import (INT, LONG, check_tensor, count_launch, lib, lib_args, on_card,
+               plain_engine, ptr)
 from .decompress import g1_from_words, g1_to_words, g2_from_words, g2_to_words
 
 
-def scalars_group(pk_jac, sig_jac, r, miller_mask, group_idx, group_present):
+def scalars_group(pk_jac, sig_jac, r, miller_mask, group_idx, group_present,
+                  engine="cios"):
     """pk_jac (n, 3, 12), sig_jac (n, 3, 2, 12) words; r (n,) int64 bit
     patterns of the 64-bit multipliers; miller_mask (n,); group_idx /
     group_present (rows, g).  Returns (agg (rows, 2, 12) affine words,
@@ -29,10 +31,12 @@ def scalars_group(pk_jac, sig_jac, r, miller_mask, group_idx, group_present):
             ("group_present", group_present, torch.bool, (rows, g))):
         check_tensor(t, name, dt, shape, dev)
     if not on_card(pk_jac):
-        return scalars_group_plain(pk_jac, sig_jac, r, miller_mask,
-                                   group_idx, group_present)
-    LAUNCHES["scalars_group"] += 1
-    return _run_scalars_group(lib("scalars_group"), pk_jac, sig_jac, r,
+        with plain_engine(engine):
+            return scalars_group_plain(pk_jac, sig_jac, r, miller_mask,
+                                       group_idx, group_present)
+    count_launch("scalars_group", engine)
+    library = lib("scalars_group", **lib_args(engine))
+    return _run_scalars_group(library, pk_jac, sig_jac, r,
                               miller_mask, group_idx, group_present)
 
 
@@ -62,7 +66,7 @@ def scalars_group_plain(pk_jac, sig_jac, r, miller_mask, group_idx,
     return g1_to_words(agg), u_mask, g2_to_words(wsig)
 
 
-def scalars(pk_jac, sig_jac, r):
+def scalars(pk_jac, sig_jac, r, engine="cios"):
     """pk_jac (n, 3, 12), sig_jac (n, 3, 2, 12) words; r (n,) int64 bit
     patterns of the 64-bit multipliers.  Returns ([r]pk (n, 3, 12),
     [r]sig (n, 3, 2, 12)) Jacobian words."""
@@ -72,9 +76,11 @@ def scalars(pk_jac, sig_jac, r):
     check_tensor(sig_jac, "sig_jac", torch.int32, (n, 3, 2, 12), dev)
     check_tensor(r, "r", torch.int64, (n,), dev)
     if not on_card(pk_jac):
-        return scalars_plain(pk_jac, sig_jac, r)
-    LAUNCHES["scalars"] += 1
-    return _run_scalars(lib("scalars_group"), pk_jac, sig_jac, r)
+        with plain_engine(engine):
+            return scalars_plain(pk_jac, sig_jac, r)
+    count_launch("scalars", engine)
+    library = lib("scalars_group", **lib_args(engine))
+    return _run_scalars(library, pk_jac, sig_jac, r)
 
 
 def _run_scalars(library, pk_jac, sig_jac, r):

@@ -31,6 +31,7 @@ DEVNI void gather_row(long r, const int32_t* hm, const int32_t* idx, long n_src,
                       uint8_t* ok) {
     long j = idx[r];
     bool in = j >= 0 && j < n_src;
+    if (!LIVE) return;
     for (int w = 0; w < 48; w++) out[48 * r + w] = in ? hm[48 * j + w] : 0;
     if (!in) ok[0] = 0;
 }
@@ -48,20 +49,26 @@ DEVNI void g1_sum_pass(long i, int32_t* x, long half) {
 
 DEVNI void g1_from_affine(long i, const int32_t* pts, const uint8_t* present, int32_t* jac) {
     g1p p = pt_infinity<fp>();
-    if (present[i]) {
-        p.x = fp_load(pts + 24 * i);
-        p.y = fp_load(pts + 24 * i + 12);
-        p.z = K_ONE;
+    bool use = present[i] != 0;
+    WHEN(use) {
+        g1p q;
+        q.x = fp_load(pts + 24 * i);
+        q.y = fp_load(pts + 24 * i + 12);
+        q.z = K_ONE;
+        if (use) p = q;
     }
     g1_store(jac + 36 * i, p);
 }
 
 DEVNI void g2_from_affine(long i, const int32_t* pts, const uint8_t* present, int32_t* jac) {
     g2p p = pt_infinity<fq2>();
-    if (present[i]) {
-        p.x = fq2_load(pts + 48 * i);
-        p.y = fq2_load(pts + 48 * i + 24);
-        p.z = fq2_one();
+    bool use = present[i] != 0;
+    WHEN(use) {
+        g2p q;
+        q.x = fq2_load(pts + 48 * i);
+        q.y = fq2_load(pts + 48 * i + 24);
+        q.z = fq2_one();
+        if (use) p = q;
     }
     g2_store(jac + 72 * i, p);
 }
@@ -69,30 +76,25 @@ DEVNI void g2_from_affine(long i, const int32_t* pts, const uint8_t* present, in
 #ifdef __CUDACC__
 __global__ void gather_row_kernel(long n, const int32_t* hm, const int32_t* idx, long n_src,
                                   int32_t* out, uint8_t* ok) {
-    long r = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (r < n) gather_row(r, hm, idx, n_src, out, ok);
+    SHELL(n, gather_row(ix, hm, idx, n_src, out, ok));
 }
 
 __global__ void lane_affine_one_kernel(long n, const int32_t* pk_r, int32_t* out) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) lane_affine_one(i, pk_r, out);
+    SHELL(n, lane_affine_one(ix, pk_r, out));
 }
 
 __global__ void g1_sum_pass_kernel(long n, int32_t* x, long half) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) g1_sum_pass(i, x, half);
+    SHELL(n, g1_sum_pass(ix, x, half));
 }
 
 __global__ void g1_from_affine_kernel(long n, const int32_t* pts, const uint8_t* present,
                                       int32_t* jac) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) g1_from_affine(i, pts, present, jac);
+    SHELL(n, g1_from_affine(ix, pts, present, jac));
 }
 
 __global__ void g2_from_affine_kernel(long n, const int32_t* pts, const uint8_t* present,
                                       int32_t* jac) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) g2_from_affine(i, pts, present, jac);
+    SHELL(n, g2_from_affine(ix, pts, present, jac));
 }
 #endif
 

@@ -13,11 +13,12 @@ from .. import limbs as fp
 from .. import points as PT
 from .. import towers as T
 from .. import verify as V
-from . import INT, LAUNCHES, LONG, check_tensor, lib, on_card, ptr
+from . import (INT, LONG, check_tensor, count_launch, lib, lib_args, on_card,
+               plain_engine, ptr)
 from .decompress import g1_from_words, g1_to_words, g2_from_words, g2_to_words
 
 
-def gather_hm(hm, idx):
+def gather_hm(hm, idx, engine="cios"):
     """hm (u, 2, 2, 12) affine G2 words, idx (rows,) int32.  Returns
     (hm[idx] (rows, 2, 2, 12), in_range (1,) bool): an index outside
     [0, u) gives a zero row and in_range False."""
@@ -25,9 +26,11 @@ def gather_hm(hm, idx):
     check_tensor(hm, "hm", torch.int32, (u, 2, 2, 12), hm.device)
     check_tensor(idx, "idx", torch.int32, (rows,), hm.device)
     if not on_card(hm):
-        return gather_hm_plain(hm, idx)
-    LAUNCHES["gather_hm"] += 1
-    return _run_gather_hm(lib("shard"), hm, idx)
+        with plain_engine(engine):
+            return gather_hm_plain(hm, idx)
+    count_launch("gather_hm", engine)
+    library = lib("shard", **lib_args(engine))
+    return _run_gather_hm(library, hm, idx)
 
 
 def _run_gather_hm(library, hm, idx):
@@ -47,15 +50,17 @@ def gather_hm_plain(hm, idx):
     return rows * ok[:, None, None, None], ok.all()[None]
 
 
-def lane_affine(pk_r):
+def lane_affine(pk_r, engine="cios"):
     """pk_r (n, 3, 12) Jacobian G1 words -> (n, 2, 12) affine words
     (infinity -> zeros)."""
     n = pk_r.shape[0]
     check_tensor(pk_r, "pk_r", torch.int32, (n, 3, 12), pk_r.device)
     if not on_card(pk_r):
-        return lane_affine_plain(pk_r)
-    LAUNCHES["lane_affine"] += 1
-    return _run_lane_affine(lib("shard"), pk_r)
+        with plain_engine(engine):
+            return lane_affine_plain(pk_r)
+    count_launch("lane_affine", engine)
+    library = lib("shard", **lib_args(engine))
+    return _run_lane_affine(library, pk_r)
 
 
 def _run_lane_affine(library, pk_r):
@@ -70,7 +75,7 @@ def lane_affine_plain(pk_r):
     return g1_to_words(V.stage_lane_affine(g1_from_words(pk_r)))
 
 
-def shard_partials(ml, wsig):
+def shard_partials(ml, wsig, engine="cios"):
     """ml (rows, 12, 12) Miller words, wsig (n, 3, 2, 12) weighted
     signatures.  Returns the shard's (product (1, 12, 12), G2 Jacobian
     sum (1, 3, 2, 12))."""
@@ -80,9 +85,11 @@ def shard_partials(ml, wsig):
     if rows < 1 or n < 1:
         raise ValueError("a shard needs at least one row and one lane")
     if not on_card(ml):
-        return shard_partials_plain(ml, wsig)
-    LAUNCHES["shard_partials"] += 1
-    return _run_shard_partials(lib("shard"), ml, wsig)
+        with plain_engine(engine):
+            return shard_partials_plain(ml, wsig)
+    count_launch("shard_partials", engine)
+    library = lib("shard", **lib_args(engine))
+    return _run_shard_partials(library, ml, wsig)
 
 
 def _run_shard_partials(library, ml, wsig):
@@ -104,7 +111,7 @@ def shard_partials_plain(ml, wsig):
     return T.fq12_to_words(_one(prod)), g2_to_words(_one(ssum))
 
 
-def aggregate_points(pts, present):
+def aggregate_points(pts, present, engine="cios"):
     """pts (n, 2, 12) affine G1 or (n, 2, 2, 12) affine G2 words, present
     (n,).  Returns the Jacobian sum, (1, 3, 12) or (1, 3, 2, 12) words."""
     n = pts.shape[0]
@@ -115,9 +122,11 @@ def aggregate_points(pts, present):
     if n < 1:
         raise ValueError("aggregate_points needs at least one point")
     if not on_card(pts):
-        return aggregate_points_plain(pts, present)
-    LAUNCHES["aggregate_points"] += 1
-    return _run_aggregate_points(lib("shard"), pts, present)
+        with plain_engine(engine):
+            return aggregate_points_plain(pts, present)
+    count_launch("aggregate_points", engine)
+    library = lib("shard", **lib_args(engine))
+    return _run_aggregate_points(library, pts, present)
 
 
 def _run_aggregate_points(library, pts, present):

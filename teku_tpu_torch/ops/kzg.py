@@ -19,6 +19,8 @@ fixed pow-2 shapes (ops/kernels/):
   (``g1_lincomb``: commitments and proofs).
 
 With ``device="cpu"`` the same calls run the kernels' plain versions.
+The Montgomery engine is resolved once, when the backend is built
+(``mont_path``, ops/mxu.py), and every kernel and plain call uses it.
 Nothing here raises ``BackendUnavailable``: a kernel that fails to build
 or launch raises, and the facade's host path never serves a card batch.
 """
@@ -37,6 +39,8 @@ from ..crypto.kzg import (BYTES_PER_BLOB, BYTES_PER_FIELD_ELEMENT,
                           RANDOM_CHALLENGE_DOMAIN, TrustedSetup,
                           compute_challenge, roots_of_unity)
 from . import limbs as fp
+from . import mxu
+from .kernels import ENGINE_OF
 from .kernels import decompress as KD
 from .kernels import kzg as KK
 from .modfield import FR
@@ -101,8 +105,13 @@ class TorchKzg:
 
     name = "torch-cuda"
 
-    def __init__(self, device="cuda", min_bucket: int = 8):
+    def __init__(self, device="cuda", min_bucket: int = 8,
+                 mont_path=None):
         self.device = torch.device(device)
+        # the Montgomery engine of every call, resolved once (None: the
+        # process path)
+        self.mont_path = mxu.resolve(mont_path)
+        self.engine = ENGINE_OF[self.mont_path]
         self.min_bucket = min_bucket
         self._g1_cache: dict = {}
         self._setup_cache: dict = {}
@@ -183,7 +192,8 @@ class TorchKzg:
         for i, (_, (x, lg, _inf)) in enumerate(miss):
             xs[i] = fp.int_to_words(x)
             large[i] = lg
-        ok, gx, gy = KD.g1_validate(self._to_dev(xs), self._to_dev(large))
+        ok, gx, gy = KD.g1_validate(self._to_dev(xs), self._to_dev(large),
+                                    engine=self.engine)
         ok, gx, gy = ok.cpu().numpy(), gx.cpu().numpy(), gy.cpu().numpy()
         for i, (raw, _) in enumerate(miss):
             self._g1_cache[raw] = (("ok", gx[i], gy[i]) if ok[i]
@@ -203,7 +213,8 @@ class TorchKzg:
         z[:b] = fr_words(zs)
         self.dispatch_count += 1
         y = KK.kzg_eval(self._to_dev(poly.reshape(pad, _N, FR.NW)),
-                        self._to_dev(z), self._roots_words()).cpu()
+                        self._to_dev(z), self._roots_words(),
+                        engine=self.engine).cpu()
         return [fp.words_to_int(y[i]) for i in range(b)]
 
     # -- verification --------------------------------------------------
@@ -229,7 +240,7 @@ class TorchKzg:
         self.dispatch_count += 1
         ok, _, _ = KK.kzg_fold(*(self._to_dev(a) for a in (
             xs, ys, inf, valid, group_b, fr_words(scalars))),
-            self._g2_consts(setup))
+            self._g2_consts(setup), engine=self.engine)
         return bool(ok.cpu()[0])
 
     @staticmethod
@@ -315,7 +326,7 @@ class TorchKzg:
             raise KzgError("scalar count must match basis size")
         self.dispatch_count += 1
         inf, xy = KK.kzg_msm(xs, ys, present, self._to_dev(
-            fr_words([s % R_MOD for s in scalars])))
+            fr_words([s % R_MOD for s in scalars])), engine=self.engine)
         if bool(inf.cpu()[0]):
             return G1_INF
         xy = xy.cpu()

@@ -8,7 +8,10 @@ reference's value bit for bit.  Torch's int64 ``>>`` is arithmetic and
 ``&`` is two's-complement, as in jnp.
 
 This is the plain version of the port: the CPU path, and the yardstick
-the CUDA kernels (ops/kernels/) are held against on the card.  The
+the CUDA kernels (ops/kernels/) are held against on the card.  Both of
+the reference's Montgomery products are here: the limb product
+(``mont_mul_vpu``) and the int8 digit product (``mont_mul_mxu``,
+ops/mxu.py); ``mont_mul`` takes the engine of this thread.  The
 kernels use another layout (12 x 32-bit words, R = 2^384), so values
 cross between the two only as canonical plain words; every conversion
 lives at the bottom of this module:
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from ..crypto.bls.constants import P
+from . import mxu as _mxu
 
 W = 26
 L = 15
@@ -185,7 +189,7 @@ def _mont_reduce(t):
     return compress(t)
 
 
-def mont_mul(a, b):
+def mont_mul_vpu(a, b):
     """Montgomery product a*b*R^-1: one unit out, value in (-P, 2P).
     Column sums are exact integers, so summing the outer product by
     column index gives the reference's columns bit for bit."""
@@ -198,8 +202,28 @@ def mont_mul(a, b):
     return _mont_reduce(t)
 
 
+def mont_sqr_vpu(a):
+    return mont_mul_vpu(a, a)
+
+
+# the digit engine: same operand contract, same _mont_reduce, product
+# columns as int8 digit outer products (ops/mxu.py)
+mont_mul_mxu, mont_sqr_mxu = _mxu.make_digit_kernels(
+    L, W, P.bit_length(), compress, _mont_reduce)
+
+
+def mont_mul(a, b):
+    """Montgomery product via the engine of this thread (ops/mxu.py:
+    pinned by ``mxu.engine``, else the configured path's)."""
+    if _mxu.active():
+        return mont_mul_mxu(a, b)
+    return mont_mul_vpu(a, b)
+
+
 def mont_sqr(a):
-    return mont_mul(a, a)
+    if _mxu.active():
+        return mont_sqr_mxu(a)
+    return mont_sqr_vpu(a)
 
 
 def to_mont(a):

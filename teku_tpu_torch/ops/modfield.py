@@ -5,8 +5,10 @@ another prime: signed 26-bit limbs in int64 lanes, R = 2^(26 L), the
 same contracts (lazy add/sub/neg, ``mont_mul`` of bounded operands
 emits one compressed unit with value in (-M, 2M), ``canonical`` decides
 equality) and the same carry scans, so every value equals the
-reference's bit for bit.  Only the reference's VPU multiplier is ported:
-its MXU int8 digit kernels are a TPU program still to port.
+reference's bit for bit.  Both of the reference's multipliers are here:
+the limb product (``mont_mul_vpu``) and the int8 digit product
+(``mont_mul_mxu``, ops/mxu.py); ``mont_mul`` takes the engine of this
+thread, as the reference's takes the configured path.
 
 ``inv_many`` is Montgomery's trick over log-depth prefix and suffix
 products (the reference's two associative scans); its canonical values
@@ -25,6 +27,7 @@ import torch
 
 from ..crypto.bls.constants import R
 from . import limbs as fp
+from . import mxu as _mxu
 
 
 def make_field(modulus: int, name: str = "field") -> SimpleNamespace:
@@ -125,7 +128,18 @@ def make_field(modulus: int, name: str = "field") -> SimpleNamespace:
     def mont_sqr_vpu(a):
         return mont_mul_vpu(a, a)
 
-    mont_mul, mont_sqr = mont_mul_vpu, mont_sqr_vpu
+    mont_mul_mxu, mont_sqr_mxu = _mxu.make_digit_kernels(
+        L, W, M.bit_length(), compress, _mont_reduce)
+
+    def mont_mul(a, b):
+        if _mxu.active():
+            return mont_mul_mxu(a, b)
+        return mont_mul_vpu(a, b)
+
+    def mont_sqr(a):
+        if _mxu.active():
+            return mont_sqr_mxu(a)
+        return mont_sqr_vpu(a)
 
     def to_mont(a):
         return mont_mul(a, const(R2_LIMBS, a))
@@ -202,7 +216,8 @@ def make_field(modulus: int, name: str = "field") -> SimpleNamespace:
         ONE_MONT=ONE_MONT, M_LIMBS=M_LIMBS,
         select=select, compress=compress, mont_mul=mont_mul,
         mont_sqr=mont_sqr, mont_mul_vpu=mont_mul_vpu,
-        mont_sqr_vpu=mont_sqr_vpu, to_mont=to_mont, canonical=canonical,
+        mont_sqr_vpu=mont_sqr_vpu, mont_mul_mxu=mont_mul_mxu,
+        mont_sqr_mxu=mont_sqr_mxu, to_mont=to_mont, canonical=canonical,
         canonical_plain=canonical_plain, is_zero=is_zero,
         pow_static=pow_static, inv=inv, inv_many=inv_many,
         plain_to_words=plain_to_words, words_to_plain=words_to_plain,

@@ -14,7 +14,11 @@ parallel.Mesh) a dispatch is group-aligned over the mesh's devices:
 h2c once on the first device, gather_hm into the shard row layout, the
 chain up to miller per shard, shard_partials, and one finish on the
 gathered partials.  With ``device="cpu"`` (or a CPU mesh) the same chain
-runs the kernels' plain PyTorch versions.  Rare
+runs the kernels' plain PyTorch versions.  The Montgomery engine is
+resolved once, when the provider is built (``mont_path``: ops/mxu.py's
+rule over the ``mont_path`` argument or the process path), and every
+kernel and plain call of its batches uses it: vpu -> the cios build,
+mxu -> the mma build (tensor cores) and the plain digit product.  Rare
 host-only SPI operations (key generation, signing, aggregation) go to
 the port's copy of the pure-Python oracle.
 """
@@ -35,6 +39,8 @@ from ..crypto.bls.spi import BLS12381, BatchSemiAggregate, ResolvedHandle
 from . import h2c_cache as HC
 from . import limbs as fp
 from . import msm
+from . import mxu
+from . import kernels as K
 from . import shapeset as SS
 from .kernels import decompress as KD
 from .kernels import h2c as KH
@@ -170,7 +176,11 @@ class TorchBls12381(BLS12381):
                  h2c_min_bucket: int = SS.H2C_MIN_BUCKET_DEFAULT,
                  h2c_cache_capacity: int = HC.DEFAULT_CAP,
                  multipliers: Callable[[int], np.ndarray] = secret_multipliers,
-                 mesh=None):
+                 mesh=None, mont_path: Optional[str] = None):
+        # the Montgomery engine of every batch, resolved once (None: the
+        # process path), as the reference's provider records it
+        self.mont_path = mxu.resolve(mont_path)
+        self.engine = K.ENGINE_OF[self.mont_path]
         # optional multi-device dispatch, group-aligned over the mesh's
         # devices (parallel.GroupShardedVerifier); host arrays and the H(m)
         # arena live on its first device
@@ -178,7 +188,8 @@ class TorchBls12381(BLS12381):
         self.mesh_info = None
         if mesh is not None:
             from ..parallel import GroupShardedVerifier
-            self._sharded = GroupShardedVerifier(mesh, min_bucket=min_bucket)
+            self._sharded = GroupShardedVerifier(mesh, min_bucket=min_bucket,
+                                                 engine=self.engine)
             min_bucket = self._sharded.min_bucket
             self.mesh_info = self._sharded.describe()
             device = mesh.devices[0]
@@ -247,7 +258,8 @@ class TorchBls12381(BLS12381):
         for i, (_, (x, lg, _inf)) in enumerate(items):
             xs[i] = fp.int_to_words(x)
             large[i] = lg
-        ok, gx, gy = KD.g1_validate(self._to_dev(xs), self._to_dev(large))
+        ok, gx, gy = KD.g1_validate(self._to_dev(xs), self._to_dev(large),
+                                    engine=self.engine)
         ok, gx, gy = ok.cpu().numpy(), gx.cpu().numpy(), gy.cpu().numpy()
         for i, (pk, _) in enumerate(items):
             entry = ("ok", gx[i], gy[i]) if ok[i] else ("bad",)
@@ -383,7 +395,8 @@ class TorchBls12381(BLS12381):
     def _h2c_dispatch(self, draws: np.ndarray):
         self.h2c_dispatch_count += 1
         u = self._to_dev(draws)
-        return KH.h2c(u[:, 0:2].contiguous(), u[:, 2:4].contiguous())
+        return KH.h2c(u[:, 0:2].contiguous(), u[:, 2:4].contiguous(),
+                      engine=self.engine)
 
     def _hm_device(self, plan):
         slots, missing, digests, draws = plan
@@ -516,7 +529,8 @@ class TorchBls12381(BLS12381):
         d = self._to_dev
         hm = self._hm_device(plan["hm_plan"])
         if self._sharded is not None:
-            hm_rows, gather_ok = KSH.gather_hm(hm, d(plan["row_gather"]))
+            hm_rows, gather_ok = KSH.gather_hm(hm, d(plan["row_gather"]),
+                                               engine=self.engine)
             arrays = {k: plan[k] for k in self.LANE_KEYS + self.ROW_KEYS}
             scalars = ("glv_digits" if plan["msm_path"] == "pippenger"
                        else "r")
@@ -529,17 +543,17 @@ class TorchBls12381(BLS12381):
         pk_jac, sig_jac, lane_ok, miller_mask = KD.prepare(
             d(plan["pk_x"]), d(plan["pk_y"]), d(plan["pk_present"]),
             d(plan["sig_x0"]), d(plan["sig_x1"]), d(plan["sig_large"]),
-            d(plan["sig_inf"]), d(plan["lane_valid"]))
+            d(plan["sig_inf"]), d(plan["lane_valid"]), engine=self.engine)
         group_idx = d(plan["group_idx"])
         group_present = d(plan["group_present"])
         if plan["msm_path"] == "pippenger":
             agg, u_mask, wsig = KM.scalars_msm(
                 pk_jac, sig_jac, d(plan["glv_digits"]), miller_mask, group_idx,
-                group_present)
+                group_present, engine=self.engine)
         else:
             agg, u_mask, wsig = KS.scalars_group(
                 pk_jac, sig_jac, d(plan["r"]), miller_mask, group_idx,
-                group_present)
-        ml = KP.miller(agg, hm, u_mask)
-        ok = KP.finish(ml, wsig)
+                group_present, engine=self.engine)
+        ml = KP.miller(agg, hm, u_mask, engine=self.engine)
+        ok = KP.finish(ml, wsig, engine=self.engine)
         return DispatchHandle(ok, lane_ok, plan["lanes"])

@@ -32,6 +32,8 @@ import numpy as np
 import torch
 
 from ..ops import _build
+from ..ops import mxu
+from ..ops.kernels import ENGINE_OF
 from ..ops.kernels import decompress as KD
 from ..ops.kernels import msm as KM
 from ..ops.kernels import pairing as KP
@@ -242,12 +244,14 @@ def _put(x, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
 
-def run_shards(devices: Sequence[torch.device], shard_fn, arrays: dict):
+def run_shards(devices: Sequence[torch.device], shard_fn, arrays: dict,
+               engine: str = "cios"):
     """Cut every array of `arrays` (numpy or tensors, leading axis the
     lanes or the rows) into one equal block per device, run
     ``shard_fn(block dict) -> (product, sum, lane_ok)`` on each device,
-    gather the partials to the first device and run finish there once.
-    Returns (ok (1,), lane_ok) in the shard layout's lane order."""
+    gather the partials to the first device and run finish (built with
+    `engine`) there once.  Returns (ok (1,), lane_ok) in the shard
+    layout's lane order."""
     n, dev0 = len(devices), devices[0]
     prods, sums, lane_oks = [], [], []
     for s, dev in enumerate(devices):
@@ -264,44 +268,46 @@ def run_shards(devices: Sequence[torch.device], shard_fn, arrays: dict):
         sums.append(ssum.to(dev0))
         lane_oks.append(lane_ok.to(dev0))
     with _on(dev0):
-        ok = KP.finish(torch.cat(prods), torch.cat(sums))
+        ok = KP.finish(torch.cat(prods), torch.cat(sums), engine=engine)
     return ok, torch.cat(lane_oks)
 
 
-def _prepare(t):
+def _prepare(t, engine):
     return KD.prepare(t["pk_x"], t["pk_y"], t["pk_present"], t["sig_x0"],
                       t["sig_x1"], t["sig_large"], t["sig_inf"],
-                      t["lane_valid"])
+                      t["lane_valid"], engine=engine)
 
 
-def grouped_shard(msm_path: str):
+def grouped_shard(msm_path: str, engine: str = "cios"):
     """One shard of the group-aligned mesh: prepare -> scalars_group
     (ladder) or scalars_msm (pippenger) -> miller at the shard's row
-    width -> shard_partials.  Row arrays: group_idx (shard-local lane
-    indices), group_present, hm_rows."""
+    width -> shard_partials, every kernel built with `engine`.  Row
+    arrays: group_idx (shard-local lane indices), group_present,
+    hm_rows."""
     def shard_fn(t):
-        pk_jac, sig_jac, lane_ok, mmask = _prepare(t)
+        pk_jac, sig_jac, lane_ok, mmask = _prepare(t, engine)
         if msm_path == "pippenger":
             agg, u_mask, wsig = KM.scalars_msm(
                 pk_jac, sig_jac, t["glv_digits"], mmask, t["group_idx"],
-                t["group_present"])
+                t["group_present"], engine=engine)
         else:
             agg, u_mask, wsig = KS.scalars_group(
                 pk_jac, sig_jac, t["r"], mmask, t["group_idx"],
-                t["group_present"])
-        ml = KP.miller(agg, t["hm_rows"], u_mask)
-        return (*KSH.shard_partials(ml, wsig), lane_ok)
+                t["group_present"], engine=engine)
+        ml = KP.miller(agg, t["hm_rows"], u_mask, engine=engine)
+        return (*KSH.shard_partials(ml, wsig, engine=engine), lane_ok)
     return shard_fn
 
 
-def lane_shard(t):
+def lane_shard(t, engine: str = "cios"):
     """One shard of the legacy lane-sharded form (the reference's
     _lane_work): prepare -> scalars -> lane_affine -> miller at lane
     width (hm: per-lane H(m) rows) -> shard_partials."""
-    pk_jac, sig_jac, lane_ok, mmask = _prepare(t)
-    pk_r, wsig = KS.scalars(pk_jac, sig_jac, t["r"])
-    ml = KP.miller(KSH.lane_affine(pk_r), t["hm"], mmask)
-    return (*KSH.shard_partials(ml, wsig), lane_ok)
+    pk_jac, sig_jac, lane_ok, mmask = _prepare(t, engine)
+    pk_r, wsig = KS.scalars(pk_jac, sig_jac, t["r"], engine=engine)
+    ml = KP.miller(KSH.lane_affine(pk_r, engine=engine), t["hm"], mmask,
+                   engine=engine)
+    return (*KSH.shard_partials(ml, wsig, engine=engine), lane_ok)
 
 
 def _mesh_size(mesh: Mesh) -> int:
@@ -318,7 +324,9 @@ class ShardedVerifier:
     up), always the ladder.  Call it with global arrays in the kernels'
     word layout: (pk_x, pk_y, pk_present, hm (N, 2, 2, 12) per-lane H(m),
     sig_x0, sig_x1, sig_large, sig_inf, r (N,) int64, lane_valid); N
-    must split into the mesh size.  Returns (ok, lane_ok)."""
+    must split into the mesh size.  Returns (ok, lane_ok).  The
+    Montgomery engine is the process path's, resolved once, when the
+    verifier is built (ops/mxu.py)."""
 
     KEYS = ("pk_x", "pk_y", "pk_present", "hm", "sig_x0", "sig_x1",
             "sig_large", "sig_inf", "r", "lane_valid")
@@ -327,25 +335,33 @@ class ShardedVerifier:
         self.mesh = mesh
         self.n_devices = _mesh_size(mesh)
         self.min_bucket = max(min_bucket, self.n_devices)
+        self.mont_path = mxu.resolve()
+        self.engine = ENGINE_OF[self.mont_path]
         _init_devices(mesh)
 
     def __call__(self, *args):
-        return run_shards(self.mesh.devices, lane_shard,
-                          dict(zip(self.KEYS, args, strict=True)))
+        engine = self.engine
+        return run_shards(self.mesh.devices,
+                          lambda t: lane_shard(t, engine),
+                          dict(zip(self.KEYS, args, strict=True)), engine)
 
 
 # process-level memo of the shard launch functions, keyed by (devices,
-# axis, msm path), as the reference memoises its sharded programs
+# axis, msm path, engine), as the reference memoises its sharded programs
+# (its store name carries the mont path)
 _KERNELS: dict = {}
 _KERNELS_LOCK = threading.Lock()
 
 
 class GroupShardedVerifier:
     """Group-aligned mesh dispatch: the per-dispatch shard planner
-    (plan()) and one launch function per scalars path (kernel())."""
+    (plan()) and one launch function per scalars path (kernel()), its
+    kernels built with `engine` (the provider's)."""
 
-    def __init__(self, mesh: Mesh, min_bucket: int = 16):
+    def __init__(self, mesh: Mesh, min_bucket: int = 16,
+                 engine: str = "cios"):
         self.mesh = mesh
+        self.engine = engine
         self.n_devices = _mesh_size(mesh)
         self.min_bucket = max(min_bucket, self.n_devices)
         _init_devices(mesh)
@@ -370,12 +386,14 @@ class GroupShardedVerifier:
         pk_present, sig_x0, sig_x1, sig_large, sig_inf, lane_valid and r
         (ladder) or glv_digits (pippenger), and the row-sharded
         group_idx, group_present and hm_rows."""
-        key = self.kernel_key(msm_path)
+        key = (*self.kernel_key(msm_path), self.engine)
         with _KERNELS_LOCK:
             fn = _KERNELS.get(key)
             if fn is None:
+                engine = self.engine
                 devices, shard_fn = list(self.mesh.devices), grouped_shard(
-                    msm_path)
+                    msm_path, engine)
                 fn = _KERNELS[key] = (
-                    lambda arrays: run_shards(devices, shard_fn, arrays))
+                    lambda arrays: run_shards(devices, shard_fn, arrays,
+                                              engine))
         return fn
