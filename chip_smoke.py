@@ -23,9 +23,11 @@ Phases, each fatal on failure (exit code 1, no result line):
               (a shard's 2 rows and 64 lanes, and an all-padding shard),
               aggregate_points on G1 and G2 (256 points, some absent).
 2b. row11 -- the Montgomery product alone (TPU program row 11): fp381_ops
-              fp_mul and fr_mul on the mma build, 4096 seeded pairs plus
-              0, 1, M - 1 and R mod M, word for word against the cios
-              build and canonically against the plain digit product
+              fp_mont and fr_mont (one product a pair, on words taken as
+              Montgomery form) and fp_mul and fr_mul (canonical words in
+              and out) on the mma build, 4096 seeded pairs plus 0, 1,
+              M - 1 and R mod M, word for word against the cios build
+              and canonically against the plain digit product
               (mont_mul_mxu, run once on the card).
 3. verify  -- drive TorchBls12381(device="cuda") through batch_verify:
               workload A, a 256-lane batch of single-key attestations
@@ -40,9 +42,9 @@ Phases, each fatal on failure (exit code 1, no result line):
               its own scalars kernel and not the other's, and every
               kernel must have launched on some path.  A and B again on
               a provider built with mont_path="mxu-force" (the mma
-              engine): the same verdicts, every launch an mma launch, no
-              cios launch, and no product of the mma build served by its
-              CIOS fallback (a split warp).  Then the valid A batch runs
+              engine): the same verdicts, every launch an mma launch and
+              no cios launch (a product that only part of a warp reached
+              traps, and the run fails).  Then the valid A batch runs
               warm 7 times on each of A's paths and on the mma engine,
               interleaved (median and spread of the batch wall time).
 4. mesh    -- TorchBls12381(mesh=make_mesh(devices=[cuda:0] * 4)), a
@@ -101,11 +103,11 @@ Phases, each fatal on failure (exit code 1, no result line):
               kernel's own count printed beside it.  gather_hm is also
               timed against torch.index_select, its library call.  Each
               kernel is timed on the mma build too, on the same inputs.
-              Row 11 alone: fp_mul at n = 256 and 2^20 and fr_mul at
-              2^20 on both builds, the plain digit product beside them,
-              bound by the CIOS product's work (576 / 256 IMADs a
-              product, or its bytes) with the mma kernel's own count
-              (int8 MACs) beside it.
+              Row 11 alone: fp_mont at n = 256 and 2^20 and fr_mont at
+              2^20 on both builds (one product a pair), the plain digit
+              product beside them, bound by one CIOS product's work a
+              pair (576 / 256 IMADs, or its bytes) with the mma
+              kernel's own count (int8 MACs of one product) beside it.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers (a row per kernel and path it was timed on -- ladder, pippenger,
@@ -481,9 +483,13 @@ ROW11_SOURCE = "teku_tpu_torch/ops/kernels/mma_digits.cuh"
 # the mma product's own work: two m16n8k32 tiles per operand pair
 MACS_PER_MMA_PRODUCT = 2 * 16 * 8 * 32
 INT8_OPS_PER_S = 1.979e15          # H100 SXM, dense int8 (2 ops a MAC)
-ROW11_FIELDS = {"fp_mul": (12, "P"), "fr_mul": (8, "R")}
+# fp381_ops entry points of the product: fp_mont / fr_mont are one
+# Montgomery product a pair (words taken as Montgomery form), fp_mul /
+# fr_mul the canonical product (to Montgomery form and back)
+ROW11_FIELDS = {"fp_mont": (12, "P"), "fr_mont": (8, "R"),
+                "fp_mul": (12, "P"), "fr_mul": (8, "R")}
 # (op, n) timed alone: the serving width and a width that fills the card
-ROW11_SIZES = (("fp_mul", 256), ("fp_mul", 1 << 20), ("fr_mul", 1 << 20))
+ROW11_SIZES = (("fp_mont", 256), ("fp_mont", 1 << 20), ("fr_mont", 1 << 20))
 PLAIN_CHUNK = 1 << 16              # pairs per call of the plain version
 
 
@@ -507,8 +513,8 @@ def row11_modulus(op):
 
 
 def phase_row11(dev):
-    """fp381_ops fp_mul and fr_mul on the mma build (row 11) against the
-    cios build, word for word, and against the plain digit product
+    """fp381_ops' products on the mma build (row 11) against the cios
+    build, word for word, and against the plain digit product
     (mont_mul_mxu, the plain version) canonically: 4096 seeded pairs
     plus 0, 1, M - 1 and R mod M."""
     import numpy as np
@@ -538,12 +544,12 @@ def phase_row11(dev):
 
 
 def row11_rows(imad_rate, launches, dev):
-    """Row 11 timed alone: fp_mul at n = 256 and 2^20 and fr_mul at 2^20
-    on both builds (CUDA events, median of 3), the plain digit product
-    (host clock, synchronized; chunks of 2^16 pairs), the bound from the
-    CIOS product's work (the products the host build counts, 576 / 256
-    IMADs each, against its bytes) and the mma kernel's own count (int8
-    MACs, 2 ops each, over the dense int8 rate)."""
+    """Row 11 timed alone: fp_mont at n = 256 and 2^20 and fr_mont at
+    2^20 on both builds (CUDA events, median of 3), the plain digit
+    product (host clock, synchronized; chunks of 2^16 pairs), the bound
+    from the CIOS product's work (the products the host build counts: 1
+    a pair, 576 / 256 IMADs, against its bytes) and the mma kernel's own
+    count (int8 MACs, 2 ops each, over the dense int8 rate)."""
     import numpy as np
     import torch
     from teku_tpu_torch.ops import _build
@@ -576,12 +582,12 @@ def row11_rows(imad_rate, launches, dev):
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = max(max_err(outs["mma"], outs["cios"]),
                   max_err(outs["mma"], plain))
-        counter = host_lib.fp381_mul_count if op == "fp_mul" \
+        counter = host_lib.fp381_mul_count if op == "fp_mont" \
             else host_lib.fr_mul_count
         before = counter()
         KF._run(host_lib, op, a[:1].cpu(), b[:1].cpu())
         per = counter() - before                 # products per element
-        mads = MADS_PER_MONT_MUL if op == "fp_mul" else MADS_PER_FR_MUL
+        mads = MADS_PER_MONT_MUL if op == "fp_mont" else MADS_PER_FR_MUL
         ops_ms = n * per * mads / imad_rate * 1e3
         bytes_ms = n * 3 * 4 * nw / HBM_BYTES_PER_S * 1e3
         own_ms = n * per * MACS_PER_MMA_PRODUCT * 2 / INT8_OPS_PER_S * 1e3
@@ -593,7 +599,7 @@ def row11_rows(imad_rate, launches, dev):
             f"({MACS_PER_MMA_PRODUCT} int8 MACs a product)")
         if err:
             fail(f"row 11: {op} at n = {n} disagrees")
-        rows.append({"name": "mont_mul_mxu" if op == "fp_mul"
+        rows.append({"name": "mont_mul_mxu" if op == "fp_mont"
                      else "fr_mont_mul_mxu",
                      "path": f"row 11 alone (fp381_ops {op}, n = {n})",
                      "route": "cuda", "source": ROW11_SOURCE,
@@ -617,8 +623,6 @@ ENGINE_PARITY_GROUPS = ("A/auto", "A/pippenger", "B/auto", "mesh A/auto",
 def phase_engine_parity(recorder):
     """Every kernel on the mma build against the cios build, word for
     word, on the first inputs each group's main-path run gave it."""
-    import torch
-    from teku_tpu_torch.ops import _build
     kr, km = kernel_runner(), kernel_runner(engine="mma")
     bad = []
     for (group, name), args in sorted(recorder.args.items()):
@@ -630,11 +634,8 @@ def phase_engine_parity(recorder):
             f"(tolerance 0)")
         if err:
             bad.append((group, name))
-    torch.cuda.synchronize()
-    fallbacks = sum(_build.mma_fallbacks(s) for s in _build.SOURCES)
-    if bad or fallbacks:
-        fail(f"the mma build disagrees with the cios build on {bad}, or "
-             f"{fallbacks} products ran on a split warp")
+    if bad:
+        fail(f"the mma build disagrees with the cios build on {bad}")
 
 
 def lane_rows(plan):
@@ -745,21 +746,13 @@ def group_engine(group: str) -> str:
 
 def engine_launches(group, engine, names):
     """The launches of `names` on `engine` since the counters were zeroed;
-    fails if the other engine launched anything, or if a product of the
-    mma build took the CIOS fallback (a warp split around a product)."""
-    from teku_tpu_torch.ops import _build
+    fails if the other engine launched anything."""
     from teku_tpu_torch.ops import kernels as K
     counts, other = ((K.MMA_LAUNCHES, K.LAUNCHES) if engine == "mma"
                      else (K.LAUNCHES, K.MMA_LAUNCHES))
     stray = {k: v for k, v in other.items() if v}
     if stray:
         fail(f"{group}: the other engine launched {stray}")
-    if engine == "mma":
-        fallbacks = {s: _build.mma_fallbacks(s) for s in _build.SOURCES}
-        log(f"[{group}] mma products served by the CIOS fallback since "
-            f"the build loaded: {json.dumps(fallbacks)}")
-        if any(fallbacks.values()):
-            fail(f"{group}: products of the mma build ran on a split warp")
     return {name: counts[name] for name in names}
 
 

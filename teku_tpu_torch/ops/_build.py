@@ -262,8 +262,6 @@ SIGNATURES = {
     "lane_affine": ([_P, _P, _L, _P], ctypes.c_int),
     "shard_partials": ([_P, _L, _P, _L, _P], ctypes.c_int),
     "aggregate_points": ([_P, _P, _I, _P, _L, _P], ctypes.c_int),
-    # every library; 0 and a no-op in the host build and the cios build
-    "mma_fallback_count": ([_P], ctypes.c_int),
     "mma_layout_check": ([_I, _P, _P], ctypes.c_int),   # host mma build
 }
 
@@ -320,16 +318,6 @@ def init_device(index: int) -> None:
     library(SOURCES[0])
     with _LOCK, torch.cuda.device(index):
         _init_locked(index)
-
-
-def mma_fallbacks(source: str) -> int:
-    """Products of the mma build of `source` on the current card that
-    only part of a warp reached, served by the CIOS product instead
-    (kernels/mma_digits.cuh): 0 when every kernel kept its warps whole."""
-    out = ctypes.c_ulonglong(0)
-    check(library(source, engine="mma").mma_fallback_count(
-        ctypes.addressof(out)), f"{source} (mma) fallback count")
-    return out.value
 
 
 def check(err: int, what: str) -> None:

@@ -17,7 +17,9 @@ resolved paths of ops/mxu.py onto them: vpu -> cios, mxu -> mma).  On
 the CPU its plain version runs with the matching plain product pinned
 (``mxu.engine``).
 
-A wrapper's internal ``_run_*`` takes the library to call as its first
+Every wrapper checks its arguments and hands them to ``dispatch``, which
+picks the plain version or the kernel and counts the launch.  A
+wrapper's internal ``_run_*`` takes the library to call as its first
 argument: the CUDA build, or (tests) the host C++ build of the same
 sources.  Scratch tensors are freed when ``_run_*`` returns while the
 kernel may still run: the caching allocator reuses a block only in the
@@ -30,6 +32,7 @@ component order c0.c0.c0, c0.c0.c1, ..., c1.c2.c1.
 """
 
 import ctypes
+import sys
 
 import torch
 
@@ -109,6 +112,22 @@ def on_card(t) -> bool:
 
 def lib(source: str, host: bool = False, engine: str = "cios"):
     return _build.library(source, host=host, engine=engine)
+
+
+def dispatch(module: str, name: str, source: str, engine: str, plain, run,
+             *args):
+    """The one branch of every wrapper, on its checked arguments: on the
+    CPU (the first tensor of `args` lies there) `plain(*args)` with
+    `engine`'s plain product pinned; on the card one launch counted for
+    `name` on `engine` and `run(library, *args)` with `source`'s library
+    of that engine.  `module` names the wrapper's module, whose own
+    ``on_card`` and ``lib`` decide (tests point them at the host build)."""
+    wrapper = sys.modules[module]
+    if not wrapper.on_card(next(a for a in args if torch.is_tensor(a))):
+        with plain_engine(engine):
+            return plain(*args)
+    count_launch(name, engine)
+    return run(wrapper.lib(source, **lib_args(engine)), *args)
 
 
 ptr = _build.ptr

@@ -10,8 +10,8 @@ from .. import _build
 from .. import limbs as fp
 from .. import points as PT
 from .. import verify as V
-from . import (INT, LONG, check_tensor, count_launch, lib, lib_args, on_card,
-               plain_engine, ptr)
+from . import INT, LONG, check_tensor, dispatch, ptr
+from . import lib, on_card  # noqa: F401  (looked up by dispatch)
 
 
 def g1_validate(x, large, engine="cios"):
@@ -20,12 +20,8 @@ def g1_validate(x, large, engine="cios"):
     m = x.shape[0]
     check_tensor(x, "x", torch.int32, (m, 12), x.device)
     check_tensor(large, "large", torch.bool, (m,), x.device)
-    if not on_card(x):
-        with plain_engine(engine):
-            return g1_validate_plain(x, large)
-    count_launch("g1_validate", engine)
-    library = lib("decompress", **lib_args(engine))
-    return _run_g1_validate(library, x, large)
+    return dispatch(__name__, "g1_validate", "decompress", engine,
+                    g1_validate_plain, _run_g1_validate, x, large)
 
 
 def _run_g1_validate(library, x, large):
@@ -64,14 +60,9 @@ def prepare(pk_x, pk_y, pk_present, sig_x0, sig_x1, sig_large, sig_inf,
         check_tensor(t, name, dt, shape, dev)
     if k & (k - 1):
         raise ValueError(f"keys per lane {k} is not a power of two")
-    if not on_card(pk_x):
-        with plain_engine(engine):
-            return prepare_plain(pk_x, pk_y, pk_present, sig_x0, sig_x1,
-                                 sig_large, sig_inf, lane_valid)
-    count_launch("prepare", engine)
-    library = lib("decompress", **lib_args(engine))
-    return _run_prepare(library, pk_x, pk_y, pk_present, sig_x0,
-                        sig_x1, sig_large, sig_inf, lane_valid)
+    return dispatch(__name__, "prepare", "decompress", engine, prepare_plain,
+                    _run_prepare, pk_x, pk_y, pk_present, sig_x0, sig_x1,
+                    sig_large, sig_inf, lane_valid)
 
 
 def _run_prepare(library, pk_x, pk_y, pk_present, sig_x0, sig_x1,

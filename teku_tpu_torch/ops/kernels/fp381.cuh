@@ -253,11 +253,7 @@ DEV fp fp_mul_mma(const fp& a, const fp& b) {
 
 DEVNI fp fp_mul(const fp& a, const fp& b) {
     COUNT_MUL();
-#if MONT_ENGINE_MMA && defined(__CUDACC__)
-    if (mma_warp_whole()) return fp_mul_mma(a, b);
-    mma_note_fallback();
-    return fp_mul_cios(a, b);
-#elif MONT_ENGINE_MMA
+#if MONT_ENGINE_MMA
     return fp_mul_mma(a, b);
 #else
     return fp_mul_cios(a, b);
@@ -693,28 +689,30 @@ DEV void g2_to_affine(const g2p& p, fq2* x, fq2* y) {
 
 // A kernel is a per-thread body fn(i, args...) and, in the CUDA build, a
 // __global__ shell fn_kernel(n, args...) that calls it for i < n
-// (SHELL(n, fn(ix, args...))): under cios the threads past n return;
-// under mma they run the body on the last index with LIVE off, so every
-// warp stays whole through its products.
+// (SHELL(n, fn(ix, args...)); SHELL_AT(i, n, ...) for a thread index i
+// the shell has remapped): under cios the threads past n return; under
+// mma they run the body on the last index with LIVE off, so every warp
+// stays whole through its products.
 // LAUNCH(n, fn, args...) runs it: one CUDA thread per i on the caller's
 // stream (the entry point's `stream` argument), or a plain loop in the
 // host build.
 #ifdef __CUDACC__
 #if MONT_ENGINE_MMA
-#define SHELL(n, call)                                                           \
+#define SHELL_AT(i, n, call)                                                     \
     do {                                                                         \
-        long i_ = (long)blockIdx.x * blockDim.x + threadIdx.x;                   \
+        long i_ = (i);                                                           \
         mma_live[threadIdx.x] = i_ < (n);                                        \
         long ix = i_ < (n) ? i_ : (n) - 1;                                       \
         call;                                                                    \
     } while (0)
 #else
-#define SHELL(n, call)                                                           \
+#define SHELL_AT(i, n, call)                                                     \
     do {                                                                         \
-        long ix = (long)blockIdx.x * blockDim.x + threadIdx.x;                   \
+        long ix = (i);                                                           \
         if (ix < (n)) call;                                                      \
     } while (0)
 #endif
+#define SHELL(n, call) SHELL_AT((long)blockIdx.x * blockDim.x + threadIdx.x, n, call)
 
 #define LAUNCH(n, fn, ...)                                                       \
     do {                                                                         \

@@ -1,7 +1,8 @@
 """fp381.cu: the field and tower entry points, held against ops/limbs.py,
 ops/modfield.py and ops/towers.py (not a stage of the verify pipeline).
-fp_mul and fr_mul are each engine's Montgomery product alone: on the mma
-build, row 11's kernel (mma_digits.cuh)."""
+fp_mont and fr_mont are each engine's Montgomery product alone, one an
+element on words taken as Montgomery form: on the mma build, row 11's
+kernel (mma_digits.cuh)."""
 
 import torch
 
@@ -9,12 +10,18 @@ from .. import _build
 from .. import limbs as fp
 from .. import towers as T
 from ..modfield import FR
-from . import (INT, LONG, check_tensor, count_launch, lib, lib_args, on_card,
-               plain_engine, ptr)
+from . import INT, LONG, check_tensor, dispatch, ptr
+from . import lib, on_card  # noqa: F401  (looked up by dispatch)
 
 OPS = {"fp_mul": (0, 1, 2), "fp_inv": (1, 1, 1), "fp_sqrt": (2, 1, 1),
-       "fq2_mul": (3, 2, 2), "fq12_mul": (4, 12, 2)}   # code, Fq per elem, args
-FR_OPS = {"fr_mul": 5}                                 # code; Fr, 2 args
+       "fq2_mul": (3, 2, 2), "fq12_mul": (4, 12, 2),
+       "fp_mont": (6, 1, 2)}                          # code, Fq per elem, args
+FR_OPS = {"fr_mul": 5, "fr_mont": 7}                   # code; Fr, 2 args
+# The limb products' R is 2^(W L) (Fq 2^390, Fr 2^260), the kernels'
+# 2^(32 NW) (2^384, 2^256): the plain fp_mont / fr_mont take one more
+# limb product, by 2^(2 W L - 32 NW) mod M, to give the kernels' a b R^-1.
+_R_FIX = {"fp": pow(2, 2 * fp.W * fp.L - 32 * fp.NW, fp.P),
+          "fr": pow(2, 2 * FR.W * FR.L - 32 * FR.NW, FR.M)}
 
 
 def _shape(op):
@@ -33,12 +40,8 @@ def fp381_ops(op: str, a, b=None, engine="cios"):
     check_tensor(a, "a", torch.int32, (n, words), a.device)
     if nargs == 2:
         check_tensor(b, "b", torch.int32, (n, words), a.device)
-    if not on_card(a):
-        with plain_engine(engine):
-            return fp381_ops_plain(op, a, b)
-    count_launch("fp381_ops", engine)
-    library = lib("fp381", **lib_args(engine))
-    return _run(library, op, a, b)
+    return dispatch(__name__, "fp381_ops", "fp381", engine, fp381_ops_plain,
+                    _run, op, a, b)
 
 
 def _run(library, op, a, b=None):
@@ -53,8 +56,18 @@ def _run(library, op, a, b=None):
 
 def fp381_ops_plain(op: str, a, b=None):
     n = a.shape[0]
-    if op in FR_OPS:
+    if op == "fr_mont":
+        x = FR.mont_mul(FR.words_to_plain(a), FR.words_to_plain(b))
+        x = FR.mont_mul(x, torch.from_numpy(FR.int_to_limbs(_R_FIX["fr"])
+                                            ).to(x.device))
+        return FR.plain_to_words(FR.canonical_unit(x))
+    if op == "fr_mul":
         return FR.to_words(FR.mont_mul(FR.from_words(a), FR.from_words(b)))
+    if op == "fp_mont":
+        x = fp.mont_mul(fp.plain_limbs_from_words(a),
+                        fp.plain_limbs_from_words(b))
+        x = fp.mont_mul(x, fp.const(fp.int_to_limbs(_R_FIX["fp"]), x.device))
+        return fp.words_i32(fp.limbs_to_words(fp.canonical_unit(x)))
     width = OPS[op][1]
     x = fp.from_words(a.reshape(n, width, 12))
     y = None if b is None else fp.from_words(b.reshape(n, width, 12))

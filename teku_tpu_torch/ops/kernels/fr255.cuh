@@ -141,11 +141,7 @@ DEV fr fr_mul_mma(const fr& a, const fr& b) {
 
 DEVNI fr fr_mul(const fr& a, const fr& b) {
     COUNT_FR_MUL();
-#if MONT_ENGINE_MMA && defined(__CUDACC__)
-    if (mma_warp_whole()) return fr_mul_mma(a, b);
-    mma_note_fallback();
-    return fr_mul_cios(a, b);
-#elif MONT_ENGINE_MMA
+#if MONT_ENGINE_MMA
     return fr_mul_mma(a, b);
 #else
     return fr_mul_cios(a, b);

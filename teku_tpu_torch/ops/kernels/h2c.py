@@ -5,8 +5,8 @@ import torch
 
 from .. import _build
 from .. import verify as V
-from . import (LONG, check_tensor, count_launch, lib, lib_args, on_card,
-               plain_engine, ptr)
+from . import LONG, check_tensor, dispatch, ptr
+from . import lib, on_card  # noqa: F401  (looked up by dispatch)
 from .decompress import g2_from_words, g2_to_words
 
 
@@ -16,12 +16,8 @@ def h2c(u0, u1, engine="cios"):
     n = u0.shape[0]
     check_tensor(u0, "u0", torch.int32, (n, 2, 12), u0.device)
     check_tensor(u1, "u1", torch.int32, (n, 2, 12), u0.device)
-    if not on_card(u0):
-        with plain_engine(engine):
-            return h2c_plain(u0, u1)
-    count_launch("h2c", engine)
-    library = lib("h2c", **lib_args(engine))
-    return _run_h2c(library, u0, u1)
+    return dispatch(__name__, "h2c", "h2c", engine, h2c_plain,
+                    _run_h2c, u0, u1)
 
 
 def _run_h2c(library, u0, u1):

@@ -18,8 +18,8 @@ from .. import pairing as PR
 from .. import points as PT
 from .. import verify as V
 from ..modfield import FR
-from . import (LONG, check_tensor, count_launch, lib, lib_args, on_card,
-               plain_engine, ptr)
+from . import LONG, check_tensor, dispatch, ptr
+from . import lib, on_card  # noqa: F401  (looked up by dispatch)
 
 EVAL_PER = 16                # kzg.cu: points per thread
 SCALAR_BITS = 256            # scalars cross as 8 words; Fr values < 2^255
@@ -106,12 +106,8 @@ def kzg_eval(poly, z, roots, engine="cios"):
     check_tensor(poly, "poly", torch.int32, (b, n, 8), dev)
     check_tensor(z, "z", torch.int32, (b, 8), dev)
     check_tensor(roots, "roots", torch.int32, (n, 8), dev)
-    if not on_card(poly):
-        with plain_engine(engine):
-            return kzg_eval_plain(poly, z, roots)
-    count_launch("kzg_eval", engine)
-    library = lib("kzg", **lib_args(engine))
-    return _run_kzg_eval(library, poly, z, roots)
+    return dispatch(__name__, "kzg_eval", "kzg", engine, kzg_eval_plain,
+                    _run_kzg_eval, poly, z, roots)
 
 
 def _run_kzg_eval(library, poly, z, roots):
@@ -152,13 +148,8 @@ def kzg_fold(xs, ys, inf, valid, group_b, scalars, g2, engine="cios"):
         check_tensor(t, name, dt, shape, dev)
     if n < 1:
         raise ValueError("kzg_fold needs at least one lane")
-    if not on_card(xs):
-        with plain_engine(engine):
-            return kzg_fold_plain(xs, ys, inf, valid, group_b, scalars, g2)
-    count_launch("kzg_fold", engine)
-    library = lib("kzg", **lib_args(engine))
-    return _run_kzg_fold(library, xs, ys, inf, valid, group_b, scalars,
-                         g2)
+    return dispatch(__name__, "kzg_fold", "kzg", engine, kzg_fold_plain,
+                    _run_kzg_fold, xs, ys, inf, valid, group_b, scalars, g2)
 
 
 def _run_kzg_fold(library, xs, ys, inf, valid, group_b, scalars, g2):
@@ -203,12 +194,8 @@ def kzg_msm(xs, ys, present, scalars, engine="cios"):
         check_tensor(t, name, dt, shape, dev)
     if n < 1:
         raise ValueError("kzg_msm needs at least one lane")
-    if not on_card(xs):
-        with plain_engine(engine):
-            return kzg_msm_plain(xs, ys, present, scalars)
-    count_launch("kzg_msm", engine)
-    library = lib("kzg", **lib_args(engine))
-    return _run_kzg_msm(library, xs, ys, present, scalars)
+    return dispatch(__name__, "kzg_msm", "kzg", engine, kzg_msm_plain,
+                    _run_kzg_msm, xs, ys, present, scalars)
 
 
 def _run_kzg_msm(library, xs, ys, present, scalars):

@@ -36,8 +36,8 @@
 // thread of a warp (padding threads on a clamped index, stores off) and
 // compute-and-select where a product depended on data (fp381.cuh
 // EVERY_LANE, LIVE, SHELL).  A product reached by part of a warp only
-// (a path this rule missed) takes the CIOS product instead and adds one
-// to mma_fallbacks, which chip_smoke.py requires to stay 0.
+// (a path this rule missed) traps: the launch fails and its wrapper
+// raises, for nothing falls back to the CIOS product.
 //
 // Fragments (PTX ISA, mma.m16n8k32, .u8): groupID g = lane >> 2,
 // t = lane & 3.  A: four .b32, element i (reg i / 4, byte i % 4) at row
@@ -159,15 +159,6 @@ DEV void mma_recombine(const int32_t* cols, uint32_t* prod) {
 // geometry, the larger; Fr uses a prefix)
 #define MMA_WARPS (THREADS / 32)
 __shared__ __align__(16) uint32_t mma_smem[MMA_WARPS][mma_geom<12>::WARP_WORDS];
-__device__ unsigned long long mma_fallbacks;
-
-extern "C" int mma_fallback_count(unsigned long long* out) {
-    cudaMemcpyFromSymbol(out, mma_fallbacks, sizeof(*out));
-    return (int)cudaGetLastError();
-}
-
-DEV bool mma_warp_whole() { return __activemask() == 0xffffffffu; }
-DEV void mma_note_fallback() { atomicAdd(&mma_fallbacks, 1ull); }
 
 DEV void mma_k32(const uint32_t* fa, const uint32_t* fb, int32_t* c) {
     asm volatile(
@@ -185,6 +176,7 @@ DEV void mma_product(const uint32_t* a, const uint32_t* b, uint32_t* prod) {
     uint32_t* bpad = arev + 32 * G::AW;
     int32_t* cols = (int32_t*)(bpad + 32 * G::BW);
     int lane = threadIdx.x & 31;
+    if (__activemask() != 0xffffffffu) __trap();   // a split warp: no product
     __syncwarp();                   // the last product's readers are done
     mma_put_digits<NW>(a, b, arev + lane * G::AW, bpad + lane * G::BW);
     __syncwarp();
@@ -203,8 +195,6 @@ DEV void mma_product(const uint32_t* a, const uint32_t* b, uint32_t* prod) {
     mma_recombine<NW>(cols + lane * G::CS, prod);
 }
 #else
-extern "C" int mma_fallback_count(unsigned long long* out) { *out = 0; return 0; }
-
 // the instruction's tile for one pair, directly: the same A and B
 template <int NW>
 DEV void mma_product(const uint32_t* a, const uint32_t* b, uint32_t* prod) {

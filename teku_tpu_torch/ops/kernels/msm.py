@@ -7,8 +7,8 @@ import torch
 from .. import _build
 from .. import msm as MSM
 from .. import verify as V
-from . import (INT, LONG, check_tensor, count_launch, lib, lib_args, on_card,
-               plain_engine, ptr)
+from . import INT, LONG, check_tensor, dispatch, ptr
+from . import lib, on_card  # noqa: F401  (looked up by dispatch)
 from .decompress import g1_from_words, g1_to_words, g2_from_words, g2_to_words
 
 NWIN = MSM.n_windows(MSM.WINDOW)      # msm.cu is built for 4-bit digits
@@ -34,14 +34,9 @@ def scalars_msm(pk_jac, sig_jac, glv_digits, miller_mask, group_idx,
         check_tensor(t, name, dt, shape, dev)
     if n < 1 or n & (n - 1):
         raise ValueError(f"lanes {n} is not a power of two")
-    if not on_card(pk_jac):
-        with plain_engine(engine):
-            return scalars_msm_plain(pk_jac, sig_jac, glv_digits, miller_mask,
-                                     group_idx, group_present)
-    count_launch("scalars_msm", engine)
-    library = lib("msm", **lib_args(engine))
-    return _run_scalars_msm(library, pk_jac, sig_jac, glv_digits,
-                            miller_mask, group_idx, group_present)
+    return dispatch(__name__, "scalars_msm", "msm", engine, scalars_msm_plain,
+                    _run_scalars_msm, pk_jac, sig_jac, glv_digits, miller_mask,
+                    group_idx, group_present)
 
 
 def _run_scalars_msm(library, pk_jac, sig_jac, glv_digits, miller_mask,

@@ -8,8 +8,8 @@ import torch
 from .. import _build
 from .. import towers as T
 from .. import verify as V
-from . import (LONG, check_tensor, count_launch, lib, lib_args, on_card,
-               plain_engine, ptr)
+from . import LONG, check_tensor, dispatch, ptr
+from . import lib, on_card  # noqa: F401  (looked up by dispatch)
 from .decompress import g1_from_words, g2_from_words
 
 
@@ -21,12 +21,8 @@ def miller(agg, hm, mask, engine="cios"):
     check_tensor(agg, "agg", torch.int32, (n, 2, 12), agg.device)
     check_tensor(hm, "hm", torch.int32, (n, 2, 2, 12), agg.device)
     check_tensor(mask, "mask", torch.bool, (n,), agg.device)
-    if not on_card(agg):
-        with plain_engine(engine):
-            return miller_plain(agg, hm, mask)
-    count_launch("miller", engine)
-    library = lib("pairing", **lib_args(engine))
-    return _run_miller(library, agg, hm, mask)
+    return dispatch(__name__, "miller", "pairing", engine, miller_plain,
+                    _run_miller, agg, hm, mask)
 
 
 def _run_miller(library, agg, hm, mask):
@@ -51,12 +47,8 @@ def finish(ml, wsig, engine="cios"):
     check_tensor(wsig, "wsig", torch.int32, (n, 3, 2, 12), ml.device)
     if rows < 1 or n < 1:
         raise ValueError("finish needs at least one row and one lane")
-    if not on_card(ml):
-        with plain_engine(engine):
-            return finish_plain(ml, wsig)
-    count_launch("finish", engine)
-    library = lib("pairing", **lib_args(engine))
-    return _run_finish(library, ml, wsig)
+    return dispatch(__name__, "finish", "pairing", engine, finish_plain,
+                    _run_finish, ml, wsig)
 
 
 def _run_finish(library, ml, wsig):

@@ -63,19 +63,12 @@ DEVNI void group_row(long u, const g1p* pk_r, const uint8_t* miller_mask,
 __global__ void ladder_kernel(long m, const int32_t* pk_jac, const int32_t* sig_jac,
                               const int64_t* r, g1p* pk_r, int32_t* pk_r_words, int32_t* wsig,
                               long n) {
-#if MONT_ENGINE_MMA
-    // G1 ladders on threads [0, m/2), G2 on [m/2, m), m/2 = n rounded up
-    // to a warp: each warp runs ladders of one group; past n, the last
-    // lane's with the stores off
-    long i_ = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    bool g2 = i_ >= m / 2;
-    long j = g2 ? i_ - m / 2 : i_;
-    mma_live[threadIdx.x] = j < n;
-    long jc = j < n ? j : n - 1;
-    ladder(g2 ? n + jc : jc, pk_jac, sig_jac, r, pk_r, pk_r_words, wsig, n);
-#else
-    SHELL(m, ladder(ix, pk_jac, sig_jac, r, pk_r, pk_r_words, wsig, n));
-#endif
+    // G1 ladders on threads [0, m/2), G2 on [m/2, m), m/2 = LADDER_HALF(n):
+    // under mma each warp runs ladders of one group
+    long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    bool g2 = t >= m / 2;
+    SHELL_AT(g2 ? t - m / 2 : t, n,
+             ladder(g2 ? n + ix : ix, pk_jac, sig_jac, r, pk_r, pk_r_words, wsig, n));
 }
 
 __global__ void group_row_kernel(long rows, const g1p* pk_r, const uint8_t* miller_mask,

@@ -8,8 +8,8 @@ import torch
 from .. import _build
 from .. import points as PT
 from .. import verify as V
-from . import (INT, LONG, check_tensor, count_launch, lib, lib_args, on_card,
-               plain_engine, ptr)
+from . import INT, LONG, check_tensor, dispatch, ptr
+from . import lib, on_card  # noqa: F401  (looked up by dispatch)
 from .decompress import g1_from_words, g1_to_words, g2_from_words, g2_to_words
 
 
@@ -30,14 +30,9 @@ def scalars_group(pk_jac, sig_jac, r, miller_mask, group_idx, group_present,
             ("group_idx", group_idx, torch.int32, (rows, g)),
             ("group_present", group_present, torch.bool, (rows, g))):
         check_tensor(t, name, dt, shape, dev)
-    if not on_card(pk_jac):
-        with plain_engine(engine):
-            return scalars_group_plain(pk_jac, sig_jac, r, miller_mask,
-                                       group_idx, group_present)
-    count_launch("scalars_group", engine)
-    library = lib("scalars_group", **lib_args(engine))
-    return _run_scalars_group(library, pk_jac, sig_jac, r,
-                              miller_mask, group_idx, group_present)
+    return dispatch(__name__, "scalars_group", "scalars_group", engine,
+                    scalars_group_plain, _run_scalars_group, pk_jac, sig_jac,
+                    r, miller_mask, group_idx, group_present)
 
 
 def _run_scalars_group(library, pk_jac, sig_jac, r, miller_mask, group_idx,
@@ -75,12 +70,8 @@ def scalars(pk_jac, sig_jac, r, engine="cios"):
     check_tensor(pk_jac, "pk_jac", torch.int32, (n, 3, 12), dev)
     check_tensor(sig_jac, "sig_jac", torch.int32, (n, 3, 2, 12), dev)
     check_tensor(r, "r", torch.int64, (n,), dev)
-    if not on_card(pk_jac):
-        with plain_engine(engine):
-            return scalars_plain(pk_jac, sig_jac, r)
-    count_launch("scalars", engine)
-    library = lib("scalars_group", **lib_args(engine))
-    return _run_scalars(library, pk_jac, sig_jac, r)
+    return dispatch(__name__, "scalars", "scalars_group", engine,
+                    scalars_plain, _run_scalars, pk_jac, sig_jac, r)
 
 
 def _run_scalars(library, pk_jac, sig_jac, r):

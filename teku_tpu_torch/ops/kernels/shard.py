@@ -13,8 +13,8 @@ from .. import limbs as fp
 from .. import points as PT
 from .. import towers as T
 from .. import verify as V
-from . import (INT, LONG, check_tensor, count_launch, lib, lib_args, on_card,
-               plain_engine, ptr)
+from . import INT, LONG, check_tensor, dispatch, ptr
+from . import lib, on_card  # noqa: F401  (looked up by dispatch)
 from .decompress import g1_from_words, g1_to_words, g2_from_words, g2_to_words
 
 
@@ -25,12 +25,8 @@ def gather_hm(hm, idx, engine="cios"):
     u, rows = hm.shape[0], idx.shape[0]
     check_tensor(hm, "hm", torch.int32, (u, 2, 2, 12), hm.device)
     check_tensor(idx, "idx", torch.int32, (rows,), hm.device)
-    if not on_card(hm):
-        with plain_engine(engine):
-            return gather_hm_plain(hm, idx)
-    count_launch("gather_hm", engine)
-    library = lib("shard", **lib_args(engine))
-    return _run_gather_hm(library, hm, idx)
+    return dispatch(__name__, "gather_hm", "shard", engine, gather_hm_plain,
+                    _run_gather_hm, hm, idx)
 
 
 def _run_gather_hm(library, hm, idx):
@@ -55,12 +51,8 @@ def lane_affine(pk_r, engine="cios"):
     (infinity -> zeros)."""
     n = pk_r.shape[0]
     check_tensor(pk_r, "pk_r", torch.int32, (n, 3, 12), pk_r.device)
-    if not on_card(pk_r):
-        with plain_engine(engine):
-            return lane_affine_plain(pk_r)
-    count_launch("lane_affine", engine)
-    library = lib("shard", **lib_args(engine))
-    return _run_lane_affine(library, pk_r)
+    return dispatch(__name__, "lane_affine", "shard", engine,
+                    lane_affine_plain, _run_lane_affine, pk_r)
 
 
 def _run_lane_affine(library, pk_r):
@@ -84,12 +76,8 @@ def shard_partials(ml, wsig, engine="cios"):
     check_tensor(wsig, "wsig", torch.int32, (n, 3, 2, 12), ml.device)
     if rows < 1 or n < 1:
         raise ValueError("a shard needs at least one row and one lane")
-    if not on_card(ml):
-        with plain_engine(engine):
-            return shard_partials_plain(ml, wsig)
-    count_launch("shard_partials", engine)
-    library = lib("shard", **lib_args(engine))
-    return _run_shard_partials(library, ml, wsig)
+    return dispatch(__name__, "shard_partials", "shard", engine,
+                    shard_partials_plain, _run_shard_partials, ml, wsig)
 
 
 def _run_shard_partials(library, ml, wsig):
@@ -121,12 +109,9 @@ def aggregate_points(pts, present, engine="cios"):
     check_tensor(present, "present", torch.bool, (n,), pts.device)
     if n < 1:
         raise ValueError("aggregate_points needs at least one point")
-    if not on_card(pts):
-        with plain_engine(engine):
-            return aggregate_points_plain(pts, present)
-    count_launch("aggregate_points", engine)
-    library = lib("shard", **lib_args(engine))
-    return _run_aggregate_points(library, pts, present)
+    return dispatch(__name__, "aggregate_points", "shard", engine,
+                    aggregate_points_plain, _run_aggregate_points, pts,
+                    present)
 
 
 def _run_aggregate_points(library, pts, present):

@@ -234,11 +234,15 @@ def to_mont(a):
 # Canonical representatives
 # --------------------------------------------------------------------------
 
+def canonical_unit(y):
+    """The limbs of y mod P in [0, P), for a product's y in (-P, 2P)."""
+    y = compress(y + const(P_LIMBS, y.device))
+    return _cond_sub_p(_cond_sub_p(y))
+
+
 def canonical(a):
     """THE canonical limbs of (a*R) mod P: decides equality/zero-ness."""
-    y = mont_mul(a, const(R2_LIMBS, a.device))
-    y = compress(y + const(P_LIMBS, a.device))
-    return _cond_sub_p(_cond_sub_p(y))
+    return canonical_unit(mont_mul(a, const(R2_LIMBS, a.device)))
 
 
 _ONE_PLAIN = int_to_limbs(1)
@@ -246,9 +250,7 @@ _ONE_PLAIN = int_to_limbs(1)
 
 def canonical_plain(a):
     """Exact canonical plain (non-Montgomery) limbs of a Montgomery unit."""
-    y = mont_mul(a, const(_ONE_PLAIN, a.device))
-    y = compress(y + const(P_LIMBS, a.device))
-    return _cond_sub_p(_cond_sub_p(y))
+    return canonical_unit(mont_mul(a, const(_ONE_PLAIN, a.device)))
 
 
 def is_zero(a):

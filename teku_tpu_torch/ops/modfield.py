@@ -144,15 +144,16 @@ def make_field(modulus: int, name: str = "field") -> SimpleNamespace:
     def to_mont(a):
         return mont_mul(a, const(R2_LIMBS, a))
 
-    def _canonicalize(y):
+    def canonical_unit(y):
+        """The limbs of y mod M in [0, M), for a product's y in (-M, 2M)."""
         y = compress(y + const(M_LIMBS, y))
         return _cond_sub_m(_cond_sub_m(y))
 
     def canonical(a):
-        return _canonicalize(mont_mul(a, const(R2_LIMBS, a)))
+        return canonical_unit(mont_mul(a, const(R2_LIMBS, a)))
 
     def canonical_plain(a):
-        return _canonicalize(mont_mul(a, const(ONE_PLAIN, a)))
+        return canonical_unit(mont_mul(a, const(ONE_PLAIN, a)))
 
     def is_zero(a):
         return torch.all(canonical(a) == 0, dim=-1)
@@ -217,7 +218,8 @@ def make_field(modulus: int, name: str = "field") -> SimpleNamespace:
         select=select, compress=compress, mont_mul=mont_mul,
         mont_sqr=mont_sqr, mont_mul_vpu=mont_mul_vpu,
         mont_sqr_vpu=mont_sqr_vpu, mont_mul_mxu=mont_mul_mxu,
-        mont_sqr_mxu=mont_sqr_mxu, to_mont=to_mont, canonical=canonical,
+        mont_sqr_mxu=mont_sqr_mxu, to_mont=to_mont,
+        canonical_unit=canonical_unit, canonical=canonical,
         canonical_plain=canonical_plain, is_zero=is_zero,
         pow_static=pow_static, inv=inv, inv_many=inv_many,
         plain_to_words=plain_to_words, words_to_plain=words_to_plain,

@@ -4,8 +4,9 @@ Without a card every kernel source builds as host C++ in both engines:
 ``cios`` and ``mma``, whose fp_mul / fr_mul take the product columns of
 kernels/mma_digits.cuh (the tensor-core tile computed directly, with the
 instruction's int32 accumulate).  Word for word, the mma build must
-equal the cios build: fp381_ops fp_mul and fr_mul on 4096 seeded pairs
-and the edges, every kernel of the BLS chain on both scalars paths, the
+equal the cios build: fp381_ops' products (fp_mont / fr_mont, one a
+pair; fp_mul / fr_mul, canonical) on 4096 seeded pairs and the edges,
+every kernel of the BLS chain on both scalars paths, the
 mesh kernels and the KZG kernels; and TorchBls12381 / TorchKzg built
 with ``mont_path="mxu-force"`` must give the oracle's verdicts through
 the mma build.  The fragment layout is held against an emulation of the
@@ -77,12 +78,16 @@ def assert_same(a, b):
 
 
 def test_products_mma_equal_cios_and_plain():
-    """fp_mul and fr_mul: the mma build equals the cios build word for
-    word on 4096 seeded pairs plus 0, 1, M - 1 and R mod M, and the plain
-    digit product (mont_mul_mxu) canonically; the fragment builders of
-    every lane, through the PTX figures, give the direct tile's words."""
-    for op, modulus, nw, r_mod in (("fp_mul", P, 12, (1 << 384) % P),
-                                   ("fr_mul", R, 8, (1 << 256) % R)):
+    """fp_mont and fr_mont (one product a pair: a b R^-1 on words taken
+    as Montgomery form), fp_mul and fr_mul (canonical a b): the mma build
+    equals the cios build word for word on 4096 seeded pairs plus 0, 1,
+    M - 1 and R mod M, and the plain digit product (mont_mul_mxu)
+    canonically; the fragment builders of every lane, through the PTX
+    figures, give the direct tile's words."""
+    for op, modulus, nw in (("fp_mul", P, 12), ("fr_mul", R, 8),
+                            ("fp_mont", P, 12), ("fr_mont", R, 8)):
+        r_mod = (1 << (32 * nw)) % modulus
+        r_inv = pow(r_mod, -1, modulus) if op.endswith("mont") else 1
         edges = [0, 1, modulus - 1, r_mod]
         xs = [int.from_bytes(RNG.bytes(48), "big") % modulus
               for _ in range(4096)] + edges
@@ -95,7 +100,8 @@ def test_products_mma_equal_cios_and_plain():
         with K.plain_engine("mma"):
             assert torch.equal(mma, KF.fp381_ops_plain(op, a, b))
         got = [fp.words_to_int(mma[i]) for i in range(4096, 4100)]
-        assert got == [x * y % modulus for x, y in zip(edges, edges[::-1])]
+        assert got == [x * y * r_inv % modulus
+                       for x, y in zip(edges, edges[::-1])]
         assert host("fp381", "mma").mma_layout_check(
             nw, K.ptr(a[:32].contiguous()), K.ptr(b[:32].contiguous())) == 0
     assert mxu.current() == "vpu"
@@ -251,13 +257,14 @@ def test_plain_mxu_path_matches_jax_provider():
 
 @pytest.mark.gpu
 def test_mma_engine_matches_cios_on_card():
-    """On the card: fp_mul and fr_mul of the mma build equal the cios
+    """On the card: fp381_ops' products of the mma build equal the cios
     build, and an 8-lane batch verifies alike on both engines."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is "
                     "False (and nvcc to build the kernels)")
     dev = torch.device("cuda")
-    for op, modulus, nw in (("fp_mul", P, 12), ("fr_mul", R, 8)):
+    for op, modulus, nw in (("fp_mul", P, 12), ("fr_mul", R, 8),
+                            ("fp_mont", P, 12), ("fr_mont", R, 8)):
         xs = [int.from_bytes(RNG.bytes(48), "big") % modulus
               for _ in range(256)]
         a = words(xs, nw).to(dev)
