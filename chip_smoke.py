@@ -22,6 +22,13 @@ Phases, each fatal on failure (exit code 1, no result line):
               lane_affine (256 lanes with infinity lanes), shard_partials
               (a shard's 2 rows and 64 lanes, and an all-padding shard),
               aggregate_points on G1 and G2 (256 points, some absent).
+2a. coop  -- pairing.cuh's cooperative routines (the finish kernel's: one
+              block of two warps a value) through pairing_ops: the Fq12
+              product, square, cyclotomic square and final
+              exponentiation, and the one-thread final exponentiation, on
+              8 seeded Fq12 values (cyclotomic ones for the cyclotomic
+              square), each engine against the plain versions on the
+              card, word for word.
 2b. row11 -- the Montgomery product alone (TPU program row 11): fp381_ops
               fp_mont and fr_mont (one product a pair, on words taken as
               Montgomery form) and fp_mul and fr_mul (canonical words in
@@ -101,8 +108,16 @@ Phases, each fatal on failure (exit code 1, no result line):
               (kzg_least_work, lane_affine_least_work: one batched
               inversion where the kernel inverts per lane), with the
               kernel's own count printed beside it.  gather_hm is also
-              timed against torch.index_select, its library call.  Each
-              kernel is timed on the mma build too, on the same inputs.
+              timed against torch.index_select, its library call, and
+              split by torch.profiler into its host time a call and its
+              device time, with the CUDA launches a call (must be 1: no
+              fill).  Each kernel is timed on the mma build too, on the
+              same inputs.  The final exponentiation alone (pairing_ops,
+              one value, as finish runs it): cooperative and one-thread,
+              on both engines; each cooperative operation's latency (65
+              in one launch less one); one Fq inversion on one thread,
+              Fermat's and the binary Euclid's (fp381_ops fp_inv and
+              fp_inv_euclid, n = 1; finish runs two of the latter).
               Row 11 alone: fp_mont at n = 256 and 2^20 and fr_mont at
               2^20 on both builds (one product a pair), the plain digit
               product beside them, bound by one CIOS product's work a
@@ -153,6 +168,8 @@ KERNELS = {
     "lane_affine": ("shard", "teku_tpu/ops/verify.py:209"),
     "shard_partials": ("shard", "teku_tpu/ops/verify.py:399, :476"),
     "aggregate_points": ("shard", "teku_tpu/ops/verify.py:528"),
+    "pairing_ops": ("pairing", "teku_tpu/ops/verify.py:112 (_finish's "
+                    "final exponentiation, teku_tpu/ops/pairing.py:239)"),
 }
 BLS_KERNELS = ("g1_validate", "prepare", "h2c", "scalars_group",
                "scalars_msm", "miller", "finish")
@@ -255,7 +272,8 @@ def phase_build():
         for line in report.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                entry = re.sub(r"^_Z\d+", "", m.group(1)).split("_kernel")[0]
+                entry = re.split(r"_kernel|_block",
+                                 re.sub(r"^_Z\d+", "", m.group(1)))[0]
             m = re.search(r"(\d+) bytes spill stores", line)
             if m:
                 spills += int(m.group(1))
@@ -355,7 +373,8 @@ def kernel_runner(host=False, engine="cios"):
              "kzg_msm": KK._run_kzg_msm, "gather_hm": KSH._run_gather_hm,
              "scalars": KS._run_scalars, "lane_affine": KSH._run_lane_affine,
              "shard_partials": KSH._run_shard_partials,
-             "aggregate_points": KSH._run_aggregate_points}
+             "aggregate_points": KSH._run_aggregate_points,
+             "pairing_ops": KP._run_pairing_ops}
 
     def run(name, *args):
         return table[name](lib(KERNELS[name][0], host=host, engine=engine),
@@ -381,7 +400,8 @@ def plain_runner():
              "scalars": KS.scalars_plain,
              "lane_affine": KSH.lane_affine_plain,
              "shard_partials": KSH.shard_partials_plain,
-             "aggregate_points": KSH.aggregate_points_plain}
+             "aggregate_points": KSH.aggregate_points_plain,
+             "pairing_ops": KP.pairing_ops_plain}
     return lambda name, *args: table[name](*args)
 
 
@@ -541,6 +561,182 @@ def phase_row11(dev):
             f"plain digit product on the card {dt:.1f} ms)")
         if any(errs):
             fail(f"row 11: {op} on the mma build disagrees")
+
+
+COOP_OPS = ("mul", "sqr", "cyclo_sqr", "final_exp", "final_exp_one_thread")
+
+
+def fq12_seeded(rng, n, dev):
+    """n seeded canonical Fq12 values, (n, 12, 12) words."""
+    import numpy as np
+    import torch
+    from teku_tpu_torch.crypto.bls.constants import P
+    from teku_tpu_torch.ops import limbs as fp
+    vals = [int.from_bytes(rng.bytes(48), "big") % P for _ in range(12 * n)]
+    return torch.from_numpy(np.stack([fp.int_to_words(v) for v in vals])
+                            ).reshape(n, 12, 12).to(dev)
+
+
+def cyclotomic_words(a):
+    """The easy part of the final exponentiation of a (plain, where a
+    lies): values of the cyclotomic subgroup."""
+    from teku_tpu_torch.ops import towers as T
+    f = T.fq12_from_words(a)
+    g = T.fq12_mul(T.fq12_conj(f), T.fq12_inv(f))
+    return T.fq12_to_words(T.fq12_mul(T.fq12_frobenius(g, 2), g))
+
+
+def phase_coop(dev):
+    """pairing_ops on each engine against the plain versions on the card
+    (exact), 8 seeded values an op."""
+    import numpy as np
+    import torch
+    from teku_tpu_torch.ops import kernels as K
+    from teku_tpu_torch.ops.kernels import pairing as KP
+    rng = np.random.default_rng(12)
+    a, b = fq12_seeded(rng, 8, dev), fq12_seeded(rng, 8, dev)
+    c = cyclotomic_words(fq12_seeded(rng, 8, dev))
+    for engine in K.ENGINES:
+        lib = K.lib("pairing", engine=engine)
+        plain = {}
+        with K.plain_engine(engine):
+            for op in COOP_OPS:
+                args = (a, b) if op == "mul" else (c,) if op == "cyclo_sqr" \
+                    else (a,)
+                key = "final_exp" if op.startswith("final_exp") else op
+                if key not in plain:
+                    plain[key] = KP.pairing_ops_plain(key, *args)
+                err = max_err(KP._run_pairing_ops(lib, op, *args),
+                              plain[key])
+                torch.cuda.synchronize()
+                log(f"[coop] {op:20s} ({engine}) on 8 values: max |kernel - "
+                    f"plain| = {err} (tolerance 0)")
+                if err:
+                    fail(f"pairing_ops {op} on the {engine} build disagrees "
+                         f"with its plain version")
+
+
+def final_exp_rows(imad_rate, launches, finish_ms, dev):
+    """The final exponentiation alone at finish's shape (one value):
+    pairing_ops' cooperative and one-thread forms on both engines (CUDA
+    events, median of 3) against the plain version; bound: the Fq
+    products the host build of the cooperative form executes.  One Fq
+    inversion on one thread (fp381_ops, n = 1), Fermat's and the binary
+    Euclid's: finish runs two of the latter (the affine sum, the Fq12
+    inverse).  And each cooperative operation's latency."""
+    import numpy as np
+    import torch
+    from teku_tpu_torch.ops import kernels as K
+    from teku_tpu_torch.ops.kernels import fp381 as KF
+    from teku_tpu_torch.ops.kernels import pairing as KP
+    a = fq12_seeded(np.random.default_rng(13), 1, dev)
+    ms, outs = {}, {}
+    for engine in K.ENGINES:
+        lib = K.lib("pairing", engine=engine)
+        for op in ("final_exp", "final_exp_one_thread"):
+            run = (lambda lib=lib, op=op: KP._run_pairing_ops(lib, op, a))
+            outs[(op, engine)] = run()
+            ms[(op, engine)] = cuda_ms(run, reps=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = KP.pairing_ops_plain("final_exp", a)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(max_err(o, plain) for o in outs.values())
+    fq, _ = host_products("pairing", "pairing_ops", ("final_exp", a))
+    fq_one, _ = host_products("pairing", "pairing_ops",
+                              ("final_exp_one_thread", a))
+    ops_ms = fq * MADS_PER_MONT_MUL / imad_rate * 1e3
+    moved = 2 * a.numel() * 4
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    inv = {}
+    x = a[:, 0].contiguous()
+    for engine in K.ENGINES:
+        lib = K.lib("fp381", engine=engine)
+        for op in ("fp_inv", "fp_inv_euclid"):
+            inv[(op, engine)] = cuda_ms(
+                lambda lib=lib, op=op: KF._run(lib, op, x), reps=3)
+    # each cooperative operation's latency: 65 of them in one launch less
+    # one, over 64 (the cyclotomic square on a cyclotomic value)
+    b = fq12_seeded(np.random.default_rng(14), 1, dev)
+    c = cyclotomic_words(b)
+    per_op = {}
+    for engine in K.ENGINES:
+        lib = K.lib("pairing", engine=engine)
+        for op, args in (("mul", (a, b)), ("sqr", (a,)), ("cyclo_sqr", (c,))):
+            t = [cuda_ms(lambda lib=lib, op=op, args=args, r=r:
+                         KP._run_pairing_ops(lib, op, *args, reps=r), reps=3)
+                 for r in (1, 65)]
+            per_op[f"{op} ({engine})"] = (t[1] - t[0]) / 64 * 1e3
+    log(f"[timing] cooperative operation latency, us (65 in one launch "
+        f"less 1, over 64): " + json.dumps(
+            {k: round(v, 2) for k, v in per_op.items()}))
+    log(f"[timing] final exponentiation alone (pairing_ops, 1 value): "
+        f"cooperative cios {ms[('final_exp', 'cios')]:.3f} ms, mma "
+        f"{ms[('final_exp', 'mma')]:.3f} ms; one thread cios "
+        f"{ms[('final_exp_one_thread', 'cios')]:.3f} ms, mma "
+        f"{ms[('final_exp_one_thread', 'mma')]:.3f} ms; plain "
+        f"{plain_ms:.1f} ms; max |kernel - plain| = {err} (tolerance 0); "
+        f"bound {max(ops_ms, bytes_ms):.4f} ms ({fq} Fq products, the "
+        f"one-thread form {fq_one})")
+    share = 2 * inv[("fp_inv_euclid", "cios")] / finish_ms * 100
+    log(f"[timing] one Fq inversion on one thread (fp381_ops, n = 1): "
+        f"Fermat (fp_inv) cios {inv[('fp_inv', 'cios')]:.3f} ms, mma "
+        f"{inv[('fp_inv', 'mma')]:.3f} ms; binary Euclid (fp_inv_euclid) "
+        f"cios {inv[('fp_inv_euclid', 'cios')]:.3f} ms, mma "
+        f"{inv[('fp_inv_euclid', 'mma')]:.3f} ms; finish (A/auto, cios, "
+        f"{finish_ms:.3f} ms) runs two Euclid ones: {share:.1f}%")
+    if err:
+        fail("the final exponentiation alone disagrees with its plain "
+             "version")
+    return [{"name": "final_exponentiation", "path":
+             "inside finish (pairing_ops final_exp, 1 value)",
+             "route": "cuda",
+             "source": "teku_tpu_torch/ops/kernels/pairing.cuh",
+             "replaces": KERNELS["pairing_ops"][1],
+             "launches": launches.get("A/auto", {}).get("finish", 0),
+             "max_abs_err": err, "ms": ms[("final_exp", "cios")],
+             "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+             "library_ms": None, "executed_ops_ms": ops_ms,
+             "mma_ms": ms[("final_exp", "mma")],
+             "mma_launches": launches.get("A/mxu", {}).get("finish", 0),
+             "one_thread_ms": ms[("final_exp_one_thread", "cios")],
+             "one_thread_mma_ms": ms[("final_exp_one_thread", "mma")],
+             "fp_inv_ms": inv[("fp_inv", "cios")],
+             "fp_inv_euclid_ms": inv[("fp_inv_euclid", "cios")],
+             "op_latency_us": per_op}]
+
+
+def launch_split(fn, calls=50):
+    """(host us a call, device us a call, CUDA launches a call, kernel
+    names) of fn: the host clock around `calls` calls unsynchronized, and
+    torch.profiler's CUDA kernel events over `calls` more (None where the
+    profiler shows no device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+    if not kernels:
+        return host_us, None, None, []
+    dev_us = sum(e.time_range.end - e.time_range.start
+                 for e in kernels) / calls
+    return (host_us, dev_us, len(kernels) / calls,
+            sorted({e.name[:60] for e in kernels}))
 
 
 def row11_rows(imad_rate, launches, dev):
@@ -1291,7 +1487,10 @@ class Recorder:
         setattr(mod, name, wrapper)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, calls: int = 1) -> float:
+    """Median over reps of the CUDA-event time of `calls` back-to-back
+    calls of fn, a call (calls > 1: the steady state of a call whose time
+    is its host path)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -1300,12 +1499,23 @@ def cuda_ms(fn, reps: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     times.sort()
     return times[len(times) // 2]
+
+
+def interleaved_ms(fns, reps: int, calls: int):
+    """cuda_ms of each fn (a call in `calls` back-to-back calls), the fns
+    taking turns over reps; the median of each."""
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for t, fn in zip(times, fns):
+            t.append(cuda_ms(fn, reps=1, calls=calls))
+    return [sorted(t)[len(t) // 2] for t in times]
 
 
 def nbytes(xs) -> int:
@@ -1417,7 +1627,8 @@ def host_products(stem, name, args):
     host_lib = _build.library(stem, host=True)
     fr_count = getattr(host_lib, "fr_mul_count", lambda: 0)
     before = (host_lib.fp381_mul_count(), fr_count())
-    kernel_runner(host=True)(name, *[a.cpu() for a in args])
+    kernel_runner(host=True)(name, *[a.cpu() if hasattr(a, "cpu") else a
+                                     for a in args])
     return (host_lib.fp381_mul_count() - before[0],
             fr_count() - before[1])
 
@@ -1456,12 +1667,24 @@ def phase_timing(recorder, launches, dev):
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = max(max_err(a, b) for a, b in zip(kout, pout))
-        ms = cuda_ms(lambda: kr(name, *args), reps=3)
+        # gather_hm, whose time is its host path: a call in 100
+        # back-to-back calls, 7 times, taking turns with its library call
+        timer = ({"reps": 7, "calls": 100} if name == "gather_hm"
+                 else {"reps": 3})
+        library_ms = None
+        if name == "gather_hm":
+            # the one PyTorch call that computes the same function: the
+            # gather's hm[idx] (the kernel also checks the indices)
+            ms, library_ms = interleaved_ms(
+                (lambda: kr(name, *args),
+                 lambda: torch.index_select(args[0], 0, args[1])), **timer)
+        else:
+            ms = cuda_ms(lambda: kr(name, *args), **timer)
         # the same kernel on the mma engine: its launches on the path's
         # mxu-force twin, its time, and its words against the cios build
         mma_err = max(max_err(a, b) for a, b in zip(
             as_tuple(km(name, *args)), kout))
-        mma_ms = cuda_ms(lambda: km(name, *args), reps=3)
+        mma_ms = cuda_ms(lambda: km(name, *args), **timer)
         mma_launched = launches.get(MXU_GROUP.get(group), {}).get(name, 0)
         fq, fr = host_products(stem, name, args)
         executed_ms = ((fq * MADS_PER_MONT_MUL + fr * MADS_PER_FR_MUL)
@@ -1480,11 +1703,6 @@ def phase_timing(recorder, launches, dev):
         ops_ms = ((fq * MADS_PER_MONT_MUL + fr * MADS_PER_FR_MUL)
                   / imad_rate * 1e3)
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        # the one PyTorch call that computes the same function: the
-        # gather's hm[idx] (the kernel also checks the indices)
-        library_ms = (cuda_ms(lambda: torch.index_select(args[0], 0,
-                                                         args[1]), reps=3)
-                      if name == "gather_hm" else None)
         shapes = ", ".join("x".join(str(d) for d in a.shape) for a in args
                            if torch.is_tensor(a))
         log(f"[timing] {name:14s} {group:11s} in ({shapes}): max |kernel "
@@ -1513,7 +1731,34 @@ def phase_timing(recorder, launches, dev):
         if mma_err != 0:
             fail(f"{name}'s mma build disagrees with its cios build at "
                  f"{group}'s shapes")
-    return rows + row11_rows(imad_rate, launches, dev)
+        if name == "gather_hm":
+            split = launch_split(lambda: kr(name, *args))
+            held = []                   # outputs held: each call creates them
+            fresh = launch_split(lambda: held.append(kr(name, *args)))
+            held.clear()
+            lsplit = launch_split(lambda: torch.index_select(args[0], 0,
+                                                             args[1]))
+            fmt = (lambda v: "not measured" if v is None  # noqa: E731
+                   else f"{v:.1f}")
+            log(f"[timing] gather_hm a call: host {fmt(split[0])} us, "
+                f"device {fmt(split[1])} us, CUDA launches "
+                f"{fmt(split[2])} {split[3]}; with its outputs held (new "
+                f"tensors each call): host {fmt(fresh[0])} us; "
+                f"torch.index_select: host {fmt(lsplit[0])} us, device "
+                f"{fmt(lsplit[1])} us, launches {fmt(lsplit[2])} "
+                f"{lsplit[3]}")
+            rows[-1].update(host_us=split[0], device_us=split[1],
+                            cuda_launches_per_call=split[2],
+                            host_us_new_outputs=fresh[0],
+                            library_host_us=lsplit[0],
+                            library_device_us=lsplit[1])
+            if split[2] is not None and split[2] != 1:
+                fail(f"gather_hm made {split[2]} CUDA launches a call, "
+                     f"expected 1")
+    finish_ms = next(r["ms"] for r in rows
+                     if r["name"] == "finish" and r["path"] == "ladder")
+    return (rows + final_exp_rows(imad_rate, launches, finish_ms, dev)
+            + row11_rows(imad_rate, launches, dev))
 
 
 def main() -> None:
@@ -1539,6 +1784,9 @@ def main() -> None:
     t0 = time.perf_counter()
     aggregate_args = phase_parity(signer, dev)
     log(f"[parity] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_coop(dev)
+    log(f"[coop] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_row11(dev)
     log(f"[row11] parity done in {time.perf_counter() - t0:.1f} s")

@@ -96,6 +96,7 @@ def constants_header() -> str:
     fpc("K_HALF", (P - 1) // 2, mont=False)
     fpc("K_ONE", 1)
     lines.append(f"DCONST fp K_R2 = {{{{{_words(R_MONT * R_MONT % P)}}}}};")
+    lines.append(f"DCONST fp K_R3 = {{{{{_words(R_MONT ** 3 % P)}}}}};")
     fpc("K_B1", B_G1)
     fq2c("K_B2", B_G2)
     fpc("K_BETA", BETA)
@@ -254,6 +255,7 @@ SIGNATURES = {
     "scalars": ([_P] * 5 + [_L, _P], ctypes.c_int),
     "miller": ([_P] * 4 + [_L, _P], ctypes.c_int),
     "finish": ([_P, _L, _P, _L, _P, _P], ctypes.c_int),
+    "pairing_ops": ([_I, _P, _P, _P, _L, _I, _P], ctypes.c_int),
     "fr_mul_count": ([], ctypes.c_ulonglong),         # host build only
     "kzg_eval": ([_P] * 6 + [_L, _L, _P], ctypes.c_int),
     "kzg_msm": ([_P] * 7 + [_L, _P], ctypes.c_int),
@@ -284,6 +286,9 @@ def library(source: str, host: bool = False,
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r} (use one of "
                          f"{'/'.join(ENGINES)})")
+    lib = _LIBS.get((source, host, engine))
+    if lib is not None:
+        return lib
     with _LOCK:
         lib = _LIBS.get((source, host, engine))
         if lib is None:
@@ -325,12 +330,20 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"CUDA kernel {what} failed: cudaError {err}")
 
 
+_RAW_STREAM: list = []     # torch's current-stream handle getter, once looked up
+
+
 def stream_ptr(t):
-    """The current CUDA stream for tensor t's device (None on the CPU)."""
-    import torch
-    if t.device.type != "cuda":
+    """The current CUDA stream's handle (an int) for tensor t's device
+    (None on the CPU)."""
+    if not t.is_cuda:
         return None
-    return _VOIDP(torch.cuda.current_stream(t.device).cuda_stream)
+    if not _RAW_STREAM:
+        import torch
+        _RAW_STREAM.append(getattr(
+            torch._C, "_cuda_getCurrentRawStream",
+            lambda i: torch.cuda.current_stream(i).cuda_stream))
+    return _RAW_STREAM[0](t.get_device())
 
 
 def ptr(t):

@@ -42,7 +42,7 @@ from .. import mxu
 NAMES = ("fp381_ops", "g1_validate", "prepare", "h2c", "scalars_group",
          "scalars_msm", "miller", "finish", "kzg_eval", "kzg_fold", "kzg_msm",
          "gather_hm", "scalars", "lane_affine", "shard_partials",
-         "aggregate_points")
+         "aggregate_points", "pairing_ops")
 LAUNCHES = {name: 0 for name in NAMES}          # cios-engine launches
 MMA_LAUNCHES = {name: 0 for name in NAMES}      # mma-engine launches
 ENGINES = _build.ENGINES

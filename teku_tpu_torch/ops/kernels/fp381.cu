@@ -4,7 +4,9 @@
 // arithmetic every kernel is built from (the counterpart of the TPU
 // engine's teku_tpu/ops/limbs.py mont_mul / pow_static / inv and
 // towers.py fq2_mul / fq12_mul), so each can be held against the plain
-// PyTorch engine on the card.  One thread per element; canonical plain
+// PyTorch engine on the card; fp_inv_euclid is the binary extended Euclid
+// inverse that pairing.cuh's cooperative routines take, beside Fermat's
+// fp_inv.  One thread per element; canonical plain
 // words in and out (to Montgomery form on load, back on store), except
 // fp_mont and fr_mont: each engine's Montgomery product alone (the mma
 // build: row 11, mma_digits.cuh), a * b * R^-1 on words in [0, M) taken
@@ -15,7 +17,7 @@
 #include "fr255.cuh"
 
 enum { OP_FP_MUL = 0, OP_FP_INV = 1, OP_FP_SQRT = 2, OP_FQ2_MUL = 3, OP_FQ12_MUL = 4,
-       OP_FR_MUL = 5, OP_FP_MONT = 6, OP_FR_MONT = 7 };
+       OP_FR_MUL = 5, OP_FP_MONT = 6, OP_FR_MONT = 7, OP_FP_INV_EUCLID = 8 };
 
 // NW words as they are, no conversion (T: fp or fr)
 template <typename T, int NW> DEV T words_in(const int32_t* w) {
@@ -36,6 +38,9 @@ DEVNI void fp381_op(long i, int op, const int32_t* a, const int32_t* b, int32_t*
         break;
     case OP_FP_INV:
         fp_store(out + 12 * i, fp_inv(fp_load(a + 12 * i)));
+        break;
+    case OP_FP_INV_EUCLID:
+        fp_store(out + 12 * i, fp_inv_euclid(fp_load(a + 12 * i)));
         break;
     case OP_FP_SQRT:
         fp_store(out + 12 * i, fp_sqrt_candidate(fp_load(a + 12 * i)));

@@ -47,6 +47,13 @@
 // WHEN(c) { x = f(); if (c) y = x; } -- f runs on every thread under the
 // mma engine (selected afterwards), only where c holds under cios
 #define WHEN(c) if (EVERY_LANE || (c))
+// reconverge a warp before a product that data-dependent control flow
+// reached: the mma product is one instruction of the whole warp
+#if MONT_ENGINE_MMA && defined(__CUDACC__)
+#define WARP_CONVERGE() __syncwarp()
+#else
+#define WARP_CONVERGE()
+#endif
 
 #ifdef __CUDACC__
 #define THREADS 64                  // threads per block of every launch
@@ -281,6 +288,59 @@ DEVNI fp fp_pow(const fp& a, const uint32_t* e, int nbits) {
 }
 
 DEV fp fp_inv(const fp& a) { return fp_pow(a, E_PM2, E_PM2_BITS); }
+
+DEV bool words_are_one(const fp& a) {
+    uint32_t acc = a.v[0] ^ 1;
+    for (int j = 1; j < 12; j++) acc |= a.v[j];
+    return acc == 0;
+}
+
+DEV void shr1_12(uint32_t* x) {
+    for (int j = 0; j < 11; j++) x[j] = (x[j] >> 1) | (x[j + 1] << 31);
+    x[11] >>= 1;
+}
+
+// x / 2 mod P for x in [0, P): x + P < 2^382 keeps to 12 words
+DEV void half_mod(fp& x) {
+    if (x.v[0] & 1) add12(x.v, x.v, K_P.v);
+    shr1_12(x.v);
+}
+
+// a^-1 by the binary extended Euclid (Guide to ECC, alg. 2.22) on the words
+// of a = x R (Montgomery form): y = (x R)^-1, then one product y R^3 R^-1 =
+// x^-1 R; 0 -> 0, as fp_inv.  About 1,150 steps of 12-word shifts and
+// subtractions and one product, where fp_inv runs ~570 dependent products;
+// the steps depend on the data (a thread's own chain, or every thread of a
+// warp on the same value).  The cooperative routines of pairing.cuh take it.
+DEVNI fp fp_inv_euclid(const fp& a) {
+    bool zero = fp_is_zero(a);
+    fp u = a, v = K_P, x1 = fp_zero(), x2 = fp_zero();
+    u.v[0] |= zero;                 // 0: run on 1 (every lane reaches the product)
+    x1.v[0] = 1;
+    // x1 a = u, x2 a = v (mod P); u, v > 0 and gcd(u, v) = 1 throughout
+    while (!words_are_one(u) && !words_are_one(v)) {
+        while (!(u.v[0] & 1)) {
+            shr1_12(u.v);
+            half_mod(x1);
+        }
+        while (!(v.v[0] & 1)) {
+            shr1_12(v.v);
+            half_mod(x2);
+        }
+        fp d;
+        if (!sub12(d.v, u.v, v.v)) {
+            u = d;
+            x1 = fp_sub(x1, x2);
+        } else {
+            sub12(v.v, v.v, u.v);
+            x2 = fp_sub(x2, x1);
+        }
+    }
+    fp y = words_are_one(u) ? x1 : x2;
+    WARP_CONVERGE();
+    fp r = fp_mul(y, K_R3);
+    return zero ? a : r;
+}
 DEV fp fp_sqrt_candidate(const fp& a) { return fp_pow(a, E_SQRT1, E_SQRT1_BITS); }
 
 // canonical plain a > b
@@ -332,8 +392,10 @@ DEVNI fq2 fq2_sqr(const fq2& a) {
 
 DEV fq2 fq2_mul_fp(const fq2& a, const fp& s) { return fq2_make(fp_mul(a.c0, s), fp_mul(a.c1, s)); }
 
-DEVNI fq2 fq2_inv(const fq2& a) {
-    fp ninv = fp_inv(fp_add(fp_sqr(a.c0), fp_sqr(a.c1)));
+// the tower inverses over Fermat's fp_inv, or (EUCLID) over fp_inv_euclid
+template <bool EUCLID = false> DEVNI fq2 fq2_inv(const fq2& a) {
+    fp norm = fp_add(fp_sqr(a.c0), fp_sqr(a.c1));
+    fp ninv = EUCLID ? fp_inv_euclid(norm) : fp_inv(norm);
     return fq2_make(fp_mul(a.c0, ninv), fp_neg(fp_mul(a.c1, ninv)));
 }
 
@@ -412,13 +474,13 @@ DEV fq6 fq6_mul_by_fq2(const fq6& a, const fq2& s) {
     return fq6_make(fq2_mul(a.c0, s), fq2_mul(a.c1, s), fq2_mul(a.c2, s));
 }
 
-DEVNI fq6 fq6_inv(const fq6& a) {
+template <bool EUCLID = false> DEVNI fq6 fq6_inv(const fq6& a) {
     fq2 t0 = fq2_sub(fq2_sqr(a.c0), fq2_mul_by_xi(fq2_mul(a.c1, a.c2)));
     fq2 t1 = fq2_sub(fq2_mul_by_xi(fq2_sqr(a.c2)), fq2_mul(a.c0, a.c1));
     fq2 t2 = fq2_sub(fq2_sqr(a.c1), fq2_mul(a.c0, a.c2));
     fq2 norm = fq2_add(fq2_mul(a.c0, t0),
                        fq2_mul_by_xi(fq2_add(fq2_mul(a.c2, t1), fq2_mul(a.c1, t2))));
-    fq2 ninv = fq2_inv(norm);
+    fq2 ninv = fq2_inv<EUCLID>(norm);
     return fq6_make(fq2_mul(t0, ninv), fq2_mul(t1, ninv), fq2_mul(t2, ninv));
 }
 
@@ -446,9 +508,9 @@ DEVNI fq12 fq12_sqr(const fq12& a) {
     return fq12_make(fq6_sub(u, fq6_add(t, fq6_mul_by_v(t))), fq6_add(t, t));
 }
 
-DEVNI fq12 fq12_inv(const fq12& a) {
+template <bool EUCLID = false> DEVNI fq12 fq12_inv(const fq12& a) {
     fq6 norm = fq6_sub(fq6_mul(a.c0, a.c0), fq6_mul_by_v(fq6_mul(a.c1, a.c1)));
-    fq6 ninv = fq6_inv(norm);
+    fq6 ninv = fq6_inv<EUCLID>(norm);
     return fq12_make(fq6_mul(a.c0, ninv), fq6_neg(fq6_mul(a.c1, ninv)));
 }
 
@@ -680,8 +742,8 @@ DEV void g1_to_affine(const g1p& p, fp* x, fp* y) {
     *y = fp_mul(p.y, fp_mul(zinv2, zinv));
 }
 
-DEV void g2_to_affine(const g2p& p, fq2* x, fq2* y) {
-    fq2 zinv = fq2_inv(p.z);
+template <bool EUCLID = false> DEV void g2_to_affine(const g2p& p, fq2* x, fq2* y) {
+    fq2 zinv = fq2_inv<EUCLID>(p.z);
     fq2 zinv2 = fq2_sqr(zinv);
     *x = fq2_mul(p.x, zinv2);
     *y = fq2_mul(p.y, fq2_mul(zinv2, zinv));

@@ -13,7 +13,8 @@ from ..modfield import FR
 from . import INT, LONG, check_tensor, dispatch, ptr
 from . import lib, on_card  # noqa: F401  (looked up by dispatch)
 
-OPS = {"fp_mul": (0, 1, 2), "fp_inv": (1, 1, 1), "fp_sqrt": (2, 1, 1),
+OPS = {"fp_mul": (0, 1, 2), "fp_inv": (1, 1, 1), "fp_inv_euclid": (8, 1, 1),
+       "fp_sqrt": (2, 1, 1),
        "fq2_mul": (3, 2, 2), "fq12_mul": (4, 12, 2),
        "fp_mont": (6, 1, 2)}                          # code, Fq per elem, args
 FR_OPS = {"fr_mul": 5, "fr_mont": 7}                   # code; Fr, 2 args
@@ -73,7 +74,7 @@ def fp381_ops_plain(op: str, a, b=None):
     y = None if b is None else fp.from_words(b.reshape(n, width, 12))
     if op == "fp_mul":
         r = fp.mont_mul(x, y)
-    elif op == "fp_inv":
+    elif op in ("fp_inv", "fp_inv_euclid"):
         r = fp.inv_many(x)
     elif op == "fp_sqrt":
         r = fp.sqrt_candidate(x)

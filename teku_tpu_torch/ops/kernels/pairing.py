@@ -1,14 +1,17 @@
 """pairing.cu: Miller loops per message row (replaces
 teku_tpu/ops/verify.py:stage_miller) and the batch verdict (replaces
 stage_finish: cross-row product, weighted-signature sum, e(-g1, sum),
-final exponentiation)."""
+final exponentiation, on pairing.cuh's cooperative routines).
+pairing_ops exposes those routines on Fq12 words (tests, chip_smoke.py;
+not a stage of the verify pipeline)."""
 
 import torch
 
 from .. import _build
+from .. import pairing as PR
 from .. import towers as T
 from .. import verify as V
-from . import LONG, check_tensor, dispatch, ptr
+from . import INT, LONG, check_tensor, dispatch, ptr
 from . import lib, on_card  # noqa: F401  (looked up by dispatch)
 from .decompress import g1_from_words, g2_from_words
 
@@ -63,3 +66,46 @@ def _run_finish(library, ml, wsig):
 
 def finish_plain(ml, wsig):
     return V.stage_finish(T.fq12_from_words(ml), g2_from_words(wsig))[None]
+
+
+# pairing.cu's op codes: the cooperative routines, and the one-thread
+# final exponentiation of pairing.cuh (mul takes b)
+PAIRING_OPS = {"mul": 0, "sqr": 1, "cyclo_sqr": 2, "final_exp": 3,
+               "final_exp_one_thread": 4}
+
+
+def pairing_ops(op: str, a, b=None, reps=1, engine="cios"):
+    """a, b (n, 12, 12) Fq12 words -> (n, 12, 12) words: a b^reps,
+    a^(2^reps) (the square, or the cyclotomic square for a in the
+    cyclotomic subgroup), or the final exponentiation of a (cooperative,
+    or on one thread; reps is ignored)."""
+    if op not in PAIRING_OPS:
+        raise ValueError(f"unknown pairing op {op!r}")
+    n = a.shape[0]
+    check_tensor(a, "a", torch.int32, (n, 12, 12), a.device)
+    if op == "mul":
+        check_tensor(b, "b", torch.int32, (n, 12, 12), a.device)
+    return dispatch(__name__, "pairing_ops", "pairing", engine,
+                    pairing_ops_plain, _run_pairing_ops, op, a, b, reps)
+
+
+def _run_pairing_ops(library, op, a, b=None, reps=1):
+    out = torch.empty_like(a)
+    _build.check(library.pairing_ops(INT(PAIRING_OPS[op]), ptr(a),
+                                     ptr(a if b is None else b), ptr(out),
+                                     LONG(a.shape[0]), INT(reps),
+                                     _build.stream_ptr(a)),
+                 f"pairing_ops {op}")
+    return out
+
+
+def pairing_ops_plain(op: str, a, b=None, reps=1):
+    x = T.fq12_from_words(a)
+    if op.startswith("final_exp"):
+        return T.fq12_to_words(PR.final_exponentiation(x))
+    y = None if b is None else T.fq12_from_words(b)
+    step = {"mul": lambda v: T.fq12_mul(v, y), "sqr": T.fq12_sqr,
+            "cyclo_sqr": T.fq12_cyclo_sqr}[op]
+    for _ in range(reps):
+        x = step(x)
+    return T.fq12_to_words(x)

@@ -1,9 +1,11 @@
 // shard.cu -- the kernels of the mesh dispatch (parallel/__init__.py).
 //
 // gather_hm replaces stage_gather_hm (teku_tpu/ops/verify.py:191): one
-// thread per output row copies the 48 words of the affine G2 point
-// hm[idx[r]].  The index is checked, not clamped: one outside [0, n_src)
-// writes a zero row and clears ok[0].
+// block of GATHER_THREADS threads, one output word a thread in a
+// block-stride loop over rows x 48 words (coalesced loads and stores of the
+// affine G2 points hm[idx[r]]).  The index is checked, not clamped: one
+// outside [0, n_src) writes a zero row; the block's __syncthreads_and of
+// the checks gives ok[0], so one launch writes both outputs (no fill).
 //
 // lane_affine replaces stage_lane_affine (verify.py:209): one thread per
 // lane, Jacobian -> affine G1 with its own Fermat inverse, as group_row
@@ -27,13 +29,14 @@
 
 #include "pairing.cuh"
 
-DEVNI void gather_row(long r, const int32_t* hm, const int32_t* idx, long n_src, int32_t* out,
-                      uint8_t* ok) {
-    long j = idx[r];
+#define GATHER_THREADS 256
+
+// output word w of the gather; returns whether its row's index is in range
+DEV bool gather_word(long w, const int32_t* hm, const int32_t* idx, long n_src, int32_t* out) {
+    long j = idx[w / 48];
     bool in = j >= 0 && j < n_src;
-    if (!LIVE) return;
-    for (int w = 0; w < 48; w++) out[48 * r + w] = in ? hm[48 * j + w] : 0;
-    if (!in) ok[0] = 0;
+    out[w] = in ? hm[48 * j + w % 48] : 0;
+    return in;
 }
 
 DEVNI void lane_affine_one(long i, const int32_t* pk_r, int32_t* out) {
@@ -74,9 +77,13 @@ DEVNI void g2_from_affine(long i, const int32_t* pts, const uint8_t* present, in
 }
 
 #ifdef __CUDACC__
-__global__ void gather_row_kernel(long n, const int32_t* hm, const int32_t* idx, long n_src,
-                                  int32_t* out, uint8_t* ok) {
-    SHELL(n, gather_row(ix, hm, idx, n_src, out, ok));
+__global__ void gather_hm_kernel(long words, const int32_t* hm, const int32_t* idx, long n_src,
+                                 int32_t* out, uint8_t* ok) {
+    bool all = true;
+    for (long w = threadIdx.x; w < words; w += blockDim.x)
+        all &= gather_word(w, hm, idx, n_src, out);
+    all = __syncthreads_and(all);
+    if (threadIdx.x == 0) ok[0] = all;
 }
 
 __global__ void lane_affine_one_kernel(long n, const int32_t* pk_r, int32_t* out) {
@@ -98,11 +105,19 @@ __global__ void g2_from_affine_kernel(long n, const int32_t* pts, const uint8_t*
 }
 #endif
 
-// out (rows, 48); ok[0] must be 1 on entry
+// out (rows, 48), ok[0] = every index in range; rows > 0
 extern "C" int gather_hm(const int32_t* hm, long n_src, const int32_t* idx, int32_t* out,
                          uint8_t* ok, long rows, void* stream) {
-    LAUNCH(rows, gather_row, hm, idx, n_src, out, ok);
+#ifdef __CUDACC__
+    gather_hm_kernel<<<1, GATHER_THREADS, 0, (cudaStream_t)stream>>>(48 * rows, hm, idx, n_src,
+                                                                      out, ok);
+    return (int)cudaGetLastError();
+#else
+    bool all = true;
+    for (long w = 0; w < 48 * rows; w++) all &= gather_word(w, hm, idx, n_src, out);
+    ok[0] = all;
     return 0;
+#endif
 }
 
 extern "C" int lane_affine(const int32_t* pk_r, int32_t* out, long n, void* stream) {
