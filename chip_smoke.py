@@ -27,8 +27,10 @@ Phases, each fatal on failure (exit code 1, no result line):
               product, square, cyclotomic square and final
               exponentiation, and the one-thread final exponentiation, on
               8 seeded Fq12 values (cyclotomic ones for the cyclotomic
-              square), each engine against the plain versions on the
-              card, word for word.
+              square), and the Miller loop on 8 seeded affine pairs, each
+              engine against the plain versions on the card (the Miller
+              loop also against the one-thread miller kernel), word for
+              word.
 2b. row11 -- the Montgomery product alone (TPU program row 11): fp381_ops
               fp_mont and fr_mont (one product a pair, on words taken as
               Montgomery form) and fp_mul and fr_mul (canonical words in
@@ -68,6 +70,13 @@ Phases, each fatal on failure (exit code 1, no result line):
               again on the mma engine, valid and tampered, with the same
               launch counts on that engine.  Then warm A on the mesh
               against warm A on one device, 7 interleaved repeats.
+              Then gather_hm against torch.index_select on mesh A's
+              inputs (gather_regimes): inside warm mesh A batches, as the
+              mesh dispatch calls it with the batch's handle alive (host
+              clock around each call, torch.profiler's device time of
+              each kernel), and alone: one call (CUDA events, median of
+              3), and a call in 100 back-to-back calls with the outputs
+              held and with them dropped.
 5. kzg     -- drive the blob path: the mainnet trusted setup (the port's
               copy of the ceremony file), TorchKzg(device="cuda") behind
               crypto/kzg's set_backend; 9 seeded blobs, their commitments
@@ -107,14 +116,19 @@ Phases, each fatal on failure (exit code 1, no result line):
               function and of lane_affine the least its real inputs need
               (kzg_least_work, lane_affine_least_work: one batched
               inversion where the kernel inverts per lane), with the
-              kernel's own count printed beside it.  gather_hm is also
-              timed against torch.index_select, its library call, and
-              split by torch.profiler into its host time a call and its
-              device time, with the CUDA launches a call (must be 1: no
-              fill).  Each kernel is timed on the mma build too, on the
-              same inputs.  The final exponentiation alone (pairing_ops,
-              one value, as finish runs it): cooperative and one-thread,
-              on both engines; each cooperative operation's latency (65
+              kernel's own count printed beside it.  gather_hm's time
+              and that of torch.index_select, its library call, are a
+              call in 100 back-to-back calls with the outputs held, as
+              the mesh dispatch holds them (gather_regimes); torch.profiler
+              splits a call into its host and device time and counts its
+              CUDA launches, kernels, memsets and copies alike (must be 1:
+              no fill; no device activity fails).  Each kernel is timed
+              on the mma build too, on the same inputs.  The final
+              exponentiation alone (pairing_ops, one value, as finish
+              runs it): cooperative and one-thread, on both engines; the
+              Miller loop alone (one pair), cooperative and one-thread
+              (the miller kernel), on both engines; each cooperative
+              operation's latency (65
               in one launch less one); one Fq inversion on one thread,
               Fermat's and the binary Euclid's (fp381_ops fp_inv and
               fp_inv_euclid, n = 1; finish runs two of the latter).
@@ -131,6 +145,13 @@ launches on the path's mxu-force twin; rows for row 11 alone), and last
 {"ok": true, "device":
 {...}}.  Keys and signatures come from the port's pure-Python oracle,
 blobs from numpy, both with --seed (default 2026).
+
+    python3 chip_smoke.py --gather-regimes-of DIR
+
+runs gather_regimes alone with the teku_tpu_torch package of another
+checkout DIR (such as the parent commit's, unpacked by git archive), to
+compare two trees' gather_hm in one call, and prints its numbers as one
+JSON line.
 """
 
 import argparse
@@ -586,9 +607,34 @@ def cyclotomic_words(a):
     return T.fq12_to_words(T.fq12_mul(T.fq12_frobenius(g, 2), g))
 
 
+def affine_pairs(rng, n, dev):
+    """n seeded pairs (P, Q): [a]G1 and [b]G2 affine, (n, 2, 12) and
+    (n, 2, 2, 12) words."""
+    import numpy as np
+    import torch
+    from teku_tpu_torch.crypto.bls import curve as C
+    from teku_tpu_torch.crypto.bls.constants import R
+    from teku_tpu_torch.ops import limbs as fp
+
+    def k():
+        return int.from_bytes(rng.bytes(32), "big") % (R - 1) + 1
+
+    ps = [C.to_affine(C.FQ_OPS, C.point_mul(C.FQ_OPS, k(), C.G1_GENERATOR))
+          for _ in range(n)]
+    qs = [C.to_affine(C.FQ2_OPS, C.point_mul(C.FQ2_OPS, k(),
+                                             C.G2_GENERATOR))
+          for _ in range(n)]
+    agg = np.array([[fp.int_to_words(c) for c in p] for p in ps],
+                   dtype=np.int32)
+    hm = np.array([[[fp.int_to_words(c) for c in v] for v in q]
+                   for q in qs], dtype=np.int32)
+    return torch.from_numpy(agg).to(dev), torch.from_numpy(hm).to(dev)
+
+
 def phase_coop(dev):
     """pairing_ops on each engine against the plain versions on the card
-    (exact), 8 seeded values an op."""
+    (exact), 8 seeded values an op; its cooperative Miller loop on 8
+    seeded pairs also against the one-thread miller kernel."""
     import numpy as np
     import torch
     from teku_tpu_torch.ops import kernels as K
@@ -596,8 +642,21 @@ def phase_coop(dev):
     rng = np.random.default_rng(12)
     a, b = fq12_seeded(rng, 8, dev), fq12_seeded(rng, 8, dev)
     c = cyclotomic_words(fq12_seeded(rng, 8, dev))
+    p, q = affine_pairs(rng, 8, dev)
+    mask = torch.ones(8, dtype=torch.bool, device=dev)
+    plain_miller = KP.pairing_ops_plain("miller", p, q)
     for engine in K.ENGINES:
         lib = K.lib("pairing", engine=engine)
+        coop = KP._run_pairing_ops(lib, "miller", p, q)
+        errs = (max_err(coop, plain_miller),
+                max_err(coop, KP._run_miller(lib, p, q, mask)))
+        torch.cuda.synchronize()
+        log(f"[coop] {'miller':20s} ({engine}) on 8 pairs: max |kernel - "
+            f"plain| = {errs[0]}, max |kernel - one-thread miller| = "
+            f"{errs[1]} (tolerance 0)")
+        if any(errs):
+            fail(f"pairing_ops miller on the {engine} build disagrees with "
+                 f"its plain version or the one-thread miller")
         plain = {}
         with K.plain_engine(engine):
             for op in COOP_OPS:
@@ -623,7 +682,8 @@ def final_exp_rows(imad_rate, launches, finish_ms, dev):
     products the host build of the cooperative form executes.  One Fq
     inversion on one thread (fp381_ops, n = 1), Fermat's and the binary
     Euclid's: finish runs two of the latter (the affine sum, the Fq12
-    inverse).  And each cooperative operation's latency."""
+    inverse).  The Miller loop alone (one pair), cooperative and
+    one-thread.  And each cooperative operation's latency."""
     import numpy as np
     import torch
     from teku_tpu_torch.ops import kernels as K
@@ -649,6 +709,15 @@ def final_exp_rows(imad_rate, launches, finish_ms, dev):
     ops_ms = fq * MADS_PER_MONT_MUL / imad_rate * 1e3
     moved = 2 * a.numel() * 4
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    # the Miller loop alone, one pair: cooperative and one-thread
+    p, q = affine_pairs(np.random.default_rng(15), 1, dev)
+    mask = torch.ones(1, dtype=torch.bool, device=dev)
+    for engine in K.ENGINES:
+        lib = K.lib("pairing", engine=engine)
+        ms[("miller", engine)] = cuda_ms(
+            lambda lib=lib: KP._run_pairing_ops(lib, "miller", p, q), reps=3)
+        ms[("miller_one_thread", engine)] = cuda_ms(
+            lambda lib=lib: KP._run_miller(lib, p, q, mask), reps=3)
     inv = {}
     x = a[:, 0].contiguous()
     for engine in K.ENGINES:
@@ -679,6 +748,11 @@ def final_exp_rows(imad_rate, launches, finish_ms, dev):
         f"{plain_ms:.1f} ms; max |kernel - plain| = {err} (tolerance 0); "
         f"bound {max(ops_ms, bytes_ms):.4f} ms ({fq} Fq products, the "
         f"one-thread form {fq_one})")
+    log(f"[timing] Miller loop alone (1 pair): cooperative (pairing_ops) "
+        f"cios {ms[('miller', 'cios')]:.3f} ms, mma "
+        f"{ms[('miller', 'mma')]:.3f} ms; one thread (miller) cios "
+        f"{ms[('miller_one_thread', 'cios')]:.3f} ms, mma "
+        f"{ms[('miller_one_thread', 'mma')]:.3f} ms")
     share = 2 * inv[("fp_inv_euclid", "cios")] / finish_ms * 100
     log(f"[timing] one Fq inversion on one thread (fp381_ops, n = 1): "
         f"Fermat (fp_inv) cios {inv[('fp_inv', 'cios')]:.3f} ms, mma "
@@ -705,16 +779,40 @@ def final_exp_rows(imad_rate, launches, finish_ms, dev):
              "one_thread_mma_ms": ms[("final_exp_one_thread", "mma")],
              "fp_inv_ms": inv[("fp_inv", "cios")],
              "fp_inv_euclid_ms": inv[("fp_inv_euclid", "cios")],
+             "coop_miller_ms": ms[("miller", "cios")],
+             "coop_miller_mma_ms": ms[("miller", "mma")],
+             "one_thread_miller_ms": ms[("miller_one_thread", "cios")],
              "op_latency_us": per_op}]
 
 
-def launch_split(fn, calls=50):
-    """(host us a call, device us a call, CUDA launches a call, kernel
-    names) of fn: the host clock around `calls` calls unsynchronized, and
-    torch.profiler's CUDA kernel events over `calls` more (None where the
-    profiler shows no device activity)."""
+def profiled(step, active=1):
+    """torch.profiler's events (CPU and CUDA) of `active` calls of step(),
+    each synchronized, after a call of it unprofiled and one in the
+    profiler's warmup: a trace that starts cold can drop the device
+    events of its first launches."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    box = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=active,
+                                   repeat=1),
+                 on_trace_ready=lambda p: box.append(list(p.events()))
+                 ) as prof:
+        for _ in range(2 + active):
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+    return box[0] if box else []
+
+
+def launch_split(fn, calls=50):
+    """(host us a call, device us a call, CUDA launches a call, their
+    names) of fn: the host clock around `calls` calls unsynchronized, and
+    torch.profiler's device events over `calls` more -- kernels, memsets
+    and copies alike, not the profiler's annotations (fn's inputs are on
+    the card already; None where the profiler shows no device
+    activity)."""
+    import torch
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -722,15 +820,15 @@ def launch_split(fn, calls=50):
         fn()
     host_us = (time.perf_counter() - t0) / calls * 1e6
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def step():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
+    # the profiler's own step annotations on the card are no launches
+    kernels = [e for e in profiled(step)
                if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and "memcpy" not in e.name.lower()
-               and "memset" not in e.name.lower()]
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("ProfilerStep")]
     if not kernels:
         return host_us, None, None, []
     dev_us = sum(e.time_range.end - e.time_range.start
@@ -1203,6 +1301,109 @@ def phase_mesh(signer, dev, recorder):
     return launches
 
 
+def median(xs):
+    return sorted(xs)[len(xs) // 2] if xs else None
+
+
+def gather_regimes(signer, dev, reps=20):
+    """gather_hm against torch.index_select on mesh A's inputs, us a call
+    as (gather_hm, index_select) per regime.  "batch_host" and
+    "batch_device": inside warm mesh A batches under auto, as the mesh
+    dispatch calls it, each batch's handle alive (it holds in_range) and
+    index_select run on the same inputs beside each call, its output held
+    as long, the two in alternating order; the host clock around each
+    call over `reps` batches (median), and torch.profiler's device time
+    of the kernels each one launched over 5 more (`profiled`), each call
+    in a range of its own (mean; None where the profiler shows none).  Alone, on the
+    first batch call's inputs: "one_call", one call (CUDA events, median
+    of 3); "held" and "dropped", a call in 100 back-to-back calls with the
+    outputs held (each call makes new ones) and dropped, 7 times, the two
+    taking turns (medians)."""
+    import torch
+    from torch.profiler import record_function
+    from teku_tpu_torch.ops.kernels import shard as KSH
+    from teku_tpu_torch.ops.provider import TorchBls12381
+    from teku_tpu_torch.parallel import make_mesh
+    prov = TorchBls12381(device=dev, mesh=make_mesh(devices=[dev] * SHARDS))
+    batch = workload_a(signer)
+    orig = KSH.gather_hm
+    host = {"gather_hm": [], "index_select": []}
+    held, first, ranges = [], [], []
+
+    def timed(hm, idx, **kw):
+        first.append((hm, idx))
+        order = [("gather_hm", lambda: orig(hm, idx, **kw)),
+                 ("index_select", lambda: torch.index_select(hm, 0, idx))]
+        out = None
+        for name, fn in order[::-1] if len(first) % 2 else order:
+            if ranges:                  # profiled: a range, no host time
+                with record_function(f"regime::{name}"):
+                    got = fn()
+            else:
+                t0 = time.perf_counter()
+                got = fn()
+                host[name].append((time.perf_counter() - t0) * 1e6)
+            if name == "gather_hm":
+                out = got
+            else:
+                held.append(got)
+        return out
+
+    handles = []
+
+    def run(n):
+        for _ in range(n):
+            handle = prov.begin_batch_verify(batch)
+            if handle.result() is not True:
+                fail("gather_regimes: warm mesh A did not verify")
+            handles.append(handle)
+
+    KSH.gather_hm = timed
+    try:
+        run(3)
+        for times in host.values():
+            times.clear()
+        run(reps)
+        ranges.append(True)
+        events = profiled(lambda: run(1), active=5)
+    finally:
+        KSH.gather_hm = orig
+
+    def device_us(name):
+        total = 0.0
+        for e in events:
+            if e.name == f"regime::{name}":
+                t = getattr(e, "device_time_total", None)
+                total += e.cuda_time_total if t is None else t
+        return total / 5 if total else None
+
+    hm, idx = first[0]
+    gather = (lambda: orig(hm, idx))                    # noqa: E731
+    library = (lambda: torch.index_select(hm, 0, idx))  # noqa: E731
+    keep = []
+    held_ms = interleaved_ms((lambda: keep.append(gather()),
+                              lambda: keep.append(library())),
+                             reps=7, calls=100)
+    keep.clear()
+    dropped_ms = interleaved_ms((gather, library), reps=7, calls=100)
+    out = {"batch_host": (median(host["gather_hm"]),
+                          median(host["index_select"])),
+           "batch_device": (device_us("gather_hm"),
+                            device_us("index_select")),
+           "one_call": (cuda_ms(gather, reps=3) * 1e3,
+                        cuda_ms(library, reps=3) * 1e3),
+           "held": (held_ms[0] * 1e3, held_ms[1] * 1e3),
+           "dropped": (dropped_ms[0] * 1e3, dropped_ms[1] * 1e3)}
+    for regime, (g, lib) in out.items():
+        under = ("not measured" if g is None or lib is None
+                 else "yes" if g <= lib else "no")
+        log(f"[gather] {regime:12s} gather_hm "
+            f"{'not measured' if g is None else f'{g:.2f}'} us, "
+            f"index_select {'not measured' if lib is None else f'{lib:.2f}'}"
+            f" us: gather_hm at or under index_select: {under}")
+    return out
+
+
 BLOBS_PER_BLOCK = 6            # MAX_BLOBS_PER_BLOCK (Deneb)
 BLOBS_PER_BLOCK_ELECTRA = 9    # MAX_BLOBS_PER_BLOCK_ELECTRA
 
@@ -1633,7 +1834,7 @@ def host_products(stem, name, args):
             fr_count() - before[1])
 
 
-def phase_timing(recorder, launches, dev):
+def phase_timing(recorder, launches, dev, regimes):
     import torch
     props = torch.cuda.get_device_properties(0)
     clock_mhz = float(smi("clocks.max.sm").split()[0])
@@ -1667,24 +1868,27 @@ def phase_timing(recorder, launches, dev):
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = max(max_err(a, b) for a, b in zip(kout, pout))
-        # gather_hm, whose time is its host path: a call in 100
-        # back-to-back calls, 7 times, taking turns with its library call
+        # gather_hm, whose time is its host path, and the one PyTorch
+        # call that computes the same function (hm[idx]; the kernel also
+        # checks the indices): a call in 100 back-to-back calls with the
+        # outputs held, as the mesh dispatch holds them (gather_regimes)
         timer = ({"reps": 7, "calls": 100} if name == "gather_hm"
                  else {"reps": 3})
         library_ms = None
         if name == "gather_hm":
-            # the one PyTorch call that computes the same function: the
-            # gather's hm[idx] (the kernel also checks the indices)
-            ms, library_ms = interleaved_ms(
-                (lambda: kr(name, *args),
-                 lambda: torch.index_select(args[0], 0, args[1])), **timer)
+            ms, library_ms = (t / 1e3 for t in regimes["held"])
         else:
             ms = cuda_ms(lambda: kr(name, *args), **timer)
         # the same kernel on the mma engine: its launches on the path's
         # mxu-force twin, its time, and its words against the cios build
         mma_err = max(max_err(a, b) for a, b in zip(
             as_tuple(km(name, *args)), kout))
-        mma_ms = cuda_ms(lambda: km(name, *args), **timer)
+        if name == "gather_hm":
+            held = []               # the outputs held, as the mesh does
+            mma_ms = cuda_ms(lambda: held.append(km(name, *args)), **timer)
+            held.clear()
+        else:
+            mma_ms = cuda_ms(lambda: km(name, *args), **timer)
         mma_launched = launches.get(MXU_GROUP.get(group), {}).get(name, 0)
         fq, fr = host_products(stem, name, args)
         executed_ms = ((fq * MADS_PER_MONT_MUL + fr * MADS_PER_FR_MUL)
@@ -1732,29 +1936,32 @@ def phase_timing(recorder, launches, dev):
             fail(f"{name}'s mma build disagrees with its cios build at "
                  f"{group}'s shapes")
         if name == "gather_hm":
-            split = launch_split(lambda: kr(name, *args))
-            held = []                   # outputs held: each call creates them
-            fresh = launch_split(lambda: held.append(kr(name, *args)))
+            # the wrapper a caller calls, its outputs held as the mesh does
+            from teku_tpu_torch.ops.kernels import shard as KSH
+            held = []
+            split = launch_split(lambda: held.append(KSH.gather_hm(*args)))
+            lsplit = launch_split(lambda: held.append(torch.index_select(
+                args[0], 0, args[1])))
             held.clear()
-            lsplit = launch_split(lambda: torch.index_select(args[0], 0,
-                                                             args[1]))
             fmt = (lambda v: "not measured" if v is None  # noqa: E731
                    else f"{v:.1f}")
-            log(f"[timing] gather_hm a call: host {fmt(split[0])} us, "
-                f"device {fmt(split[1])} us, CUDA launches "
-                f"{fmt(split[2])} {split[3]}; with its outputs held (new "
-                f"tensors each call): host {fmt(fresh[0])} us; "
-                f"torch.index_select: host {fmt(lsplit[0])} us, device "
-                f"{fmt(lsplit[1])} us, launches {fmt(lsplit[2])} "
-                f"{lsplit[3]}")
+            log(f"[timing] gather_hm a call (the wrapper), its outputs "
+                f"held: host {fmt(split[0])} us, device {fmt(split[1])} "
+                f"us, CUDA launches {fmt(split[2])} {split[3]}; "
+                f"torch.index_select: "
+                f"host {fmt(lsplit[0])} us, device {fmt(lsplit[1])} us, "
+                f"launches {fmt(lsplit[2])} {lsplit[3]}")
             rows[-1].update(host_us=split[0], device_us=split[1],
                             cuda_launches_per_call=split[2],
-                            host_us_new_outputs=fresh[0],
                             library_host_us=lsplit[0],
-                            library_device_us=lsplit[1])
-            if split[2] is not None and split[2] != 1:
-                fail(f"gather_hm made {split[2]} CUDA launches a call, "
-                     f"expected 1")
+                            library_device_us=lsplit[1],
+                            regimes_us=regimes)
+            if split[2] is None:
+                fail("gather_hm: torch.profiler shows no device activity, "
+                     "so its launches a call are not counted")
+            if split[2] != 1:
+                fail(f"gather_hm made {split[2]} CUDA launches a call "
+                     f"(kernels, memsets and copies), expected 1")
     finish_ms = next(r["ms"] for r in rows
                      if r["name"] == "finish" and r["path"] == "ladder")
     return (rows + final_exp_rows(imad_rate, launches, finish_ms, dev)
@@ -1764,11 +1971,15 @@ def phase_timing(recorder, launches, dev):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=2026)
+    ap.add_argument("--gather-regimes-of", metavar="DIR",
+                    help="run only gather_regimes, with the teku_tpu_torch "
+                    "package of the checkout DIR")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: no CUDA card")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.abspath(
+        args.gather_regimes_of or os.path.dirname(os.path.abspath(__file__))))
     try:
         import teku_tpu_torch  # noqa: F401
     except ImportError as exc:
@@ -1777,6 +1988,13 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    if args.gather_regimes_of:
+        from teku_tpu_torch.ops import _build
+        log(f"[gather] teku_tpu_torch of {args.gather_regimes_of}: "
+            f"{len(_build.build_all())} libraries built")
+        out = gather_regimes(Signer(args.seed, 256), dev)
+        print(json.dumps({"gather_regimes_us": out}), flush=True)
+        return
     phase_build()
     t0 = time.perf_counter()
     signer = Signer(args.seed, 256)
@@ -1796,6 +2014,7 @@ def main() -> None:
     launches = phase_verify(signer, dev, recorder)
     t0 = time.perf_counter()
     launches.update(phase_mesh(signer, dev, recorder))
+    regimes = gather_regimes(signer, dev)
     log(f"[mesh] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches.update(phase_kzg(dev, args.seed, recorder))
@@ -1803,7 +2022,7 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_engine_parity(recorder)
     log(f"[engines] done in {time.perf_counter() - t0:.1f} s")
-    rows = phase_timing(recorder, launches, dev)
+    rows = phase_timing(recorder, launches, dev, regimes)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi("name,power.limit"), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

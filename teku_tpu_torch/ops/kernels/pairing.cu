@@ -17,9 +17,9 @@
 // serial, each one binary extended Euclid inversion (fp_inv_euclid).
 //
 // pairing_ops exposes the cooperative Fq12 product, square, cyclotomic
-// square and final exponentiation, and the one-thread final
-// exponentiation, on arrays of Fq12 words (tests and chip_smoke.py; no
-// caller on the verify path).
+// square, Miller loop and final exponentiation, and the one-thread final
+// exponentiation, on arrays of words (tests and chip_smoke.py; no caller
+// on the verify path).
 //
 // Bound: 32-bit multiply-adds -- 63 doubling and 5 addition steps per
 // Miller row; the verdict is a chain of ~750 dependent Fq12 operations and
@@ -95,13 +95,31 @@ extern "C" int finish(int32_t* ml, long rows, int32_t* wsig, long lanes, uint8_t
     return 0;
 }
 
-enum { OP_MUL = 0, OP_SQR = 1, OP_CYCLO_SQR = 2, OP_FINAL_EXP = 3, OP_FINAL_EXP_ONE_THREAD = 4 };
+enum { OP_MUL = 0, OP_SQR = 1, OP_CYCLO_SQR = 2, OP_FINAL_EXP = 3, OP_FINAL_EXP_ONE_THREAD = 4,
+       OP_MILLER = 5 };
 
 // element i of the cooperative ops: a, b, out (n, 144) canonical words;
-// the product and squares applied `reps` times (a b^reps, a^(2^reps))
+// the product and squares applied `reps` times (a b^reps, a^(2^reps)).
+// OP_MILLER: a (n, 24) affine G1 words P, b (n, 48) affine G2 words Q,
+// out the Miller value of (P, Q), as pairing.cuh's miller_loop gives it
 DEVNI void pairing_op_coop(coop_t* S, long i, int op, const int32_t* a, const int32_t* b,
                            int32_t* out, int reps) {
     fq12 *x = &S->f[0], *y = &S->f[1];
+    if (op == OP_MILLER) {
+        COOP_FOR(j, 1) {
+            fp px = fp_load(a + 24 * i), py = fp_load(a + 24 * i + 12);
+            fq2 qx = fq2_load(b + 48 * i), qy = fq2_load(b + 48 * i + 24);
+            if (own) {
+                S->r[R_XQ] = qx;
+                S->r[R_YQ] = qy;
+                S->r[R_PX] = fq2_make(fp_neg(px), fp_zero());
+                S->r[R_PY] = fq2_make(py, fp_zero());
+            }
+        } COOP_END
+        coop_miller(S, x, y);
+        coop_fq12_store(out + 144 * i, x);
+        return;
+    }
     coop_fq12_load(x, a + 144 * i);
     if (op == OP_MUL) coop_fq12_load(y, b + 144 * i);
     if (op == OP_FINAL_EXP) {

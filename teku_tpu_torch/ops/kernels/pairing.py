@@ -2,8 +2,9 @@
 teku_tpu/ops/verify.py:stage_miller) and the batch verdict (replaces
 stage_finish: cross-row product, weighted-signature sum, e(-g1, sum),
 final exponentiation, on pairing.cuh's cooperative routines).
-pairing_ops exposes those routines on Fq12 words (tests, chip_smoke.py;
-not a stage of the verify pipeline)."""
+pairing_ops exposes those routines on Fq12 words, and the cooperative
+Miller loop on affine points (tests, chip_smoke.py; not a stage of the
+verify pipeline)."""
 
 import torch
 
@@ -69,20 +70,26 @@ def finish_plain(ml, wsig):
 
 
 # pairing.cu's op codes: the cooperative routines, and the one-thread
-# final exponentiation of pairing.cuh (mul takes b)
+# final exponentiation of pairing.cuh (mul and miller take b)
 PAIRING_OPS = {"mul": 0, "sqr": 1, "cyclo_sqr": 2, "final_exp": 3,
-               "final_exp_one_thread": 4}
+               "final_exp_one_thread": 4, "miller": 5}
 
 
 def pairing_ops(op: str, a, b=None, reps=1, engine="cios"):
     """a, b (n, 12, 12) Fq12 words -> (n, 12, 12) words: a b^reps,
     a^(2^reps) (the square, or the cyclotomic square for a in the
     cyclotomic subgroup), or the final exponentiation of a (cooperative,
-    or on one thread; reps is ignored)."""
+    or on one thread; reps is ignored).  "miller": a (n, 2, 12) affine G1
+    and b (n, 2, 2, 12) affine G2 words -> the cooperative Miller loop's
+    values (reps is ignored)."""
     if op not in PAIRING_OPS:
         raise ValueError(f"unknown pairing op {op!r}")
     n = a.shape[0]
-    check_tensor(a, "a", torch.int32, (n, 12, 12), a.device)
+    if op == "miller":
+        check_tensor(a, "a", torch.int32, (n, 2, 12), a.device)
+        check_tensor(b, "b", torch.int32, (n, 2, 2, 12), a.device)
+    else:
+        check_tensor(a, "a", torch.int32, (n, 12, 12), a.device)
     if op == "mul":
         check_tensor(b, "b", torch.int32, (n, 12, 12), a.device)
     return dispatch(__name__, "pairing_ops", "pairing", engine,
@@ -90,7 +97,8 @@ def pairing_ops(op: str, a, b=None, reps=1, engine="cios"):
 
 
 def _run_pairing_ops(library, op, a, b=None, reps=1):
-    out = torch.empty_like(a)
+    out = torch.empty((a.shape[0], 12, 12), dtype=torch.int32,
+                      device=a.device)
     _build.check(library.pairing_ops(INT(PAIRING_OPS[op]), ptr(a),
                                      ptr(a if b is None else b), ptr(out),
                                      LONG(a.shape[0]), INT(reps),
@@ -100,6 +108,9 @@ def _run_pairing_ops(library, op, a, b=None, reps=1):
 
 
 def pairing_ops_plain(op: str, a, b=None, reps=1):
+    if op == "miller":
+        return miller_plain(a, b, torch.ones(a.shape[0], dtype=torch.bool,
+                                             device=a.device))
     x = T.fq12_from_words(a)
     if op.startswith("final_exp"):
         return T.fq12_to_words(PR.final_exponentiation(x))

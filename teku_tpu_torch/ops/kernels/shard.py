@@ -6,8 +6,6 @@ verify_kernel_sharded_grouped and verify_kernel_sharded, and
 aggregate_points aggregate_points_kernel.
 """
 
-import sys
-
 import torch
 
 from .. import _build
@@ -34,51 +32,16 @@ def gather_hm(hm, idx, engine="cios"):
                     _run_gather_hm, hm, idx)
 
 
-# gather_hm's outputs kept for reuse, by (device, stream, rows): on the card
-# the call's time is its host path, and creating its output tensors is a
-# large part of it (chip_smoke.py times the call with its outputs held, so
-# each call creates them, and released, so they are reused).  Both outputs
-# are views of one int32 buffer (rows x 48 words, then the flag's word).  A
-# kept pair is handed out again only when nothing else holds it -- no Python
-# reference but this dict's, no view of either, no other user of the
-# storage than at its creation -- and nothing changed it in place (resize_,
-# set_ and the rest bump the shared _version; the kernel's writes do not),
-# and only on the stream it was written on, which orders the new write
-# after every earlier reader, as the caching allocator's own reuse of a
-# freed block does.
-_KEPT: dict = {}        # key -> (out, in_range, buffer address, storage users)
-
-
-def _storage_users(t) -> int:
-    return torch._C._storage_Use_Count(t.untyped_storage()._cdata)
-
-
-def _gather_outputs(hm, key, rows):
-    kept = _KEPT.get(key)
-    # getrefcount 2: the kept tuple's reference and getrefcount's argument
-    if (kept is not None and sys.getrefcount(kept[0]) == 2
-            and sys.getrefcount(kept[1]) == 2 and kept[0]._use_count() == 1
-            and kept[1]._use_count() == 1 and kept[0]._version == 0
-            and kept[0].data_ptr() == kept[2]
-            and _storage_users(kept[0]) == kept[3]):
-        return kept
-    buf = torch.empty(48 * rows + 1, dtype=torch.int32, device=hm.device)
-    out = buf[:48 * rows].view(rows, 2, 2, 12)
-    in_range = buf[48 * rows:].view(torch.bool)[:1]
-    del buf
-    kept = _KEPT[key] = (out, in_range, out.data_ptr(), _storage_users(out))
-    return kept
-
-
 def _run_gather_hm(library, hm, idx):
-    # one launch, no fill (the kernel writes in_range); plain ints to ctypes
-    rows, stream = idx.shape[0], _build.stream_ptr(hm)
-    kept = _gather_outputs(hm, (hm.get_device(), stream, rows), rows)
-    err = library.gather_hm(hm.data_ptr(), hm.shape[0], idx.data_ptr(),
-                            kept[2], kept[2] + 192 * rows, rows, stream)
-    if err:
-        _build.check(err, "gather_hm")
-    return kept[0], kept[1]
+    # one launch, no fill: the kernel writes in_range; plain ints to ctypes
+    rows = idx.shape[0]
+    out = hm.new_empty((rows, 2, 2, 12))
+    in_range = torch.empty(1, dtype=torch.bool, device=hm.device)
+    _build.check(library.gather_hm(hm.data_ptr(), hm.shape[0],
+                                   idx.data_ptr(), out.data_ptr(),
+                                   in_range.data_ptr(), rows,
+                                   _build.stream_ptr(hm)), "gather_hm")
+    return out, in_range
 
 
 def gather_hm_plain(hm, idx):
