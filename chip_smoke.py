@@ -22,15 +22,13 @@ Phases, each fatal on failure (exit code 1, no result line):
               lane_affine (256 lanes with infinity lanes), shard_partials
               (a shard's 2 rows and 64 lanes, and an all-padding shard),
               aggregate_points on G1 and G2 (256 points, some absent).
-2a. coop  -- pairing.cuh's cooperative routines (the finish kernel's: one
-              block of two warps a value) through pairing_ops: the Fq12
-              product, square, cyclotomic square and final
-              exponentiation, and the one-thread final exponentiation, on
-              8 seeded Fq12 values (cyclotomic ones for the cyclotomic
-              square), and the Miller loop on 8 seeded affine pairs, each
-              engine against the plain versions on the card (the Miller
-              loop also against the one-thread miller kernel), word for
-              word.
+2a. coop  -- pairing.cuh's cooperative routines (finish's, miller's and
+              kzg_fold's: one block of two warps a value) through
+              pairing_ops: the Fq12 product, square, cyclotomic square and
+              final exponentiation on 8 seeded Fq12 values (cyclotomic
+              ones for the cyclotomic square), and the Miller loop through
+              miller on 8 seeded affine pairs (3 rows masked), each engine
+              against the plain versions on the card, word for word.
 2b. row11 -- the Montgomery product alone (TPU program row 11): fp381_ops
               fp_mont and fr_mont (one product a pair, on words taken as
               Montgomery form) and fp_mul and fr_mul (canonical words in
@@ -98,11 +96,17 @@ Phases, each fatal on failure (exit code 1, no result line):
               mont_path="mxu-force", then warm K6 on both engines, 7
               interleaved repeats.
 5b. engines -- every kernel on the mma build against the cios build, word
-              for word, on the inputs each of A (both scalars paths), B,
-              mesh A, the legacy mesh and K6 gave it.
+              for word, on the first inputs each of A (both scalars
+              paths), B, mesh A and B, the legacy mesh, K6 and K9 gave
+              it; miller (a block per row) and kzg_fold (its pairings and
+              final exponentiation on blocks) also against their plain
+              versions there: A (8 rows), B (64), mesh A (2 a shard),
+              mesh B (16), the legacy mesh (64, a row per lane), K6 and
+              K9 (32 lanes).
 6. timing  -- each kernel at the main path's shapes (A's for the BLS
-              kernels, finish on both the 1-lane wsig of scalars_msm and
-              the 256-lane wsig of scalars_group; the mesh path's for
+              kernels, miller also at B's 64 rows, finish on both the
+              1-lane wsig of scalars_msm and the 256-lane wsig of
+              scalars_group; the mesh path's for
               gather_hm and shard_partials, the legacy path's for scalars
               and lane_affine, the parity phase's for aggregate_points,
               which nothing on the path calls; the KZG path's for the
@@ -112,23 +116,29 @@ Phases, each fatal on failure (exit code 1, no result line):
               (576 per Fq and 256 per Fr Montgomery product), or its
               bytes over the memory rate, whichever is larger.  The work
               of a BLS kernel is the products the host C++ build of the
-              same source executes on these inputs; that of a KZG
+              same source executes on these inputs, less, in miller and
+              finish, what its Miller loops, Fq12 product and final
+              exponentiation execute beyond their least work: the fewer
+              of the host build's and the plain version's products for
+              each (pairing_least_work); that of a KZG
               function and of lane_affine the least its real inputs need
               (kzg_least_work, lane_affine_least_work: one batched
               inversion where the kernel inverts per lane), with the
-              kernel's own count printed beside it.  gather_hm's time
+              kernel's own count printed beside it (kzg_fold's pairings:
+              pairing_least_work).  gather_hm's time
               and that of torch.index_select, its library call, are a
               call in 100 back-to-back calls with the outputs held, as
               the mesh dispatch holds them (gather_regimes); torch.profiler
               splits a call into its host and device time and counts its
               CUDA launches, kernels, memsets and copies alike (must be 1:
-              no fill; no device activity fails).  Each kernel is timed
-              on the mma build too, on the same inputs.  The final
-              exponentiation alone (pairing_ops, one value, as finish
-              runs it): cooperative and one-thread, on both engines; the
-              Miller loop alone (one pair), cooperative and one-thread
-              (the miller kernel), on both engines; each cooperative
-              operation's latency (65
+              no fill; no device activity fails).  kzg_fold's CUDA
+              kernels a call, device time from torch.profiler, split into
+              fold_lane, the halving sums, the two pair blocks and the
+              verdict block.  Each kernel is timed on the mma build too,
+              on the same inputs.  The final exponentiation alone
+              (pairing_ops, one value, as finish and kzg_fold run it) and
+              the Miller loop alone (miller, one row), on both engines;
+              each cooperative operation's latency (65
               in one launch less one); one Fq inversion on one thread,
               Fermat's and the binary Euclid's (fp381_ops fp_inv and
               fp_inv_euclid, n = 1; finish runs two of the latter).
@@ -584,7 +594,7 @@ def phase_row11(dev):
             fail(f"row 11: {op} on the mma build disagrees")
 
 
-COOP_OPS = ("mul", "sqr", "cyclo_sqr", "final_exp", "final_exp_one_thread")
+COOP_OPS = ("mul", "sqr", "cyclo_sqr", "final_exp")
 
 
 def fq12_seeded(rng, n, dev):
@@ -632,9 +642,9 @@ def affine_pairs(rng, n, dev):
 
 
 def phase_coop(dev):
-    """pairing_ops on each engine against the plain versions on the card
-    (exact), 8 seeded values an op; its cooperative Miller loop on 8
-    seeded pairs also against the one-thread miller kernel."""
+    """pairing_ops and miller on each engine against the plain versions on
+    the card (exact): 8 seeded values an op, 8 seeded pairs (rows 1, 4
+    and 6 masked) for the Miller loop."""
     import numpy as np
     import torch
     from teku_tpu_torch.ops import kernels as K
@@ -644,29 +654,23 @@ def phase_coop(dev):
     c = cyclotomic_words(fq12_seeded(rng, 8, dev))
     p, q = affine_pairs(rng, 8, dev)
     mask = torch.ones(8, dtype=torch.bool, device=dev)
-    plain_miller = KP.pairing_ops_plain("miller", p, q)
+    mask[[1, 4, 6]] = False
+    plain_miller = KP.miller_plain(p, q, mask)
     for engine in K.ENGINES:
         lib = K.lib("pairing", engine=engine)
-        coop = KP._run_pairing_ops(lib, "miller", p, q)
-        errs = (max_err(coop, plain_miller),
-                max_err(coop, KP._run_miller(lib, p, q, mask)))
+        err = max_err(KP._run_miller(lib, p, q, mask), plain_miller)
         torch.cuda.synchronize()
-        log(f"[coop] {'miller':20s} ({engine}) on 8 pairs: max |kernel - "
-            f"plain| = {errs[0]}, max |kernel - one-thread miller| = "
-            f"{errs[1]} (tolerance 0)")
-        if any(errs):
-            fail(f"pairing_ops miller on the {engine} build disagrees with "
-                 f"its plain version or the one-thread miller")
-        plain = {}
+        log(f"[coop] {'miller':20s} ({engine}) on 8 pairs, 3 masked: max "
+            f"|kernel - plain| = {err} (tolerance 0)")
+        if err:
+            fail(f"miller on the {engine} build disagrees with its plain "
+                 f"version")
         with K.plain_engine(engine):
             for op in COOP_OPS:
                 args = (a, b) if op == "mul" else (c,) if op == "cyclo_sqr" \
                     else (a,)
-                key = "final_exp" if op.startswith("final_exp") else op
-                if key not in plain:
-                    plain[key] = KP.pairing_ops_plain(key, *args)
                 err = max_err(KP._run_pairing_ops(lib, op, *args),
-                              plain[key])
+                              KP.pairing_ops_plain(op, *args))
                 torch.cuda.synchronize()
                 log(f"[coop] {op:20s} ({engine}) on 8 values: max |kernel - "
                     f"plain| = {err} (tolerance 0)")
@@ -675,15 +679,15 @@ def phase_coop(dev):
                          f"with its plain version")
 
 
-def final_exp_rows(imad_rate, launches, finish_ms, dev):
+def final_exp_rows(imad_rate, launches, finish_ms, counts, dev):
     """The final exponentiation alone at finish's shape (one value):
-    pairing_ops' cooperative and one-thread forms on both engines (CUDA
-    events, median of 3) against the plain version; bound: the Fq
-    products the host build of the cooperative form executes.  One Fq
-    inversion on one thread (fp381_ops, n = 1), Fermat's and the binary
-    Euclid's: finish runs two of the latter (the affine sum, the Fq12
-    inverse).  The Miller loop alone (one pair), cooperative and
-    one-thread.  And each cooperative operation's latency."""
+    pairing_ops on both engines (CUDA events, median of 3) against the
+    plain version; bound: its least work, the fewer of `counts`' Fq
+    products (the host build's, the plain version's: pairing_least_work).  One
+    Fq inversion on one thread (fp381_ops, n = 1), Fermat's and the
+    binary Euclid's: finish runs two of the latter (the affine sum, the
+    Fq12 inverse).  The Miller loop alone (miller, one row).  And each
+    cooperative operation's latency."""
     import numpy as np
     import torch
     from teku_tpu_torch.ops import kernels as K
@@ -693,30 +697,26 @@ def final_exp_rows(imad_rate, launches, finish_ms, dev):
     ms, outs = {}, {}
     for engine in K.ENGINES:
         lib = K.lib("pairing", engine=engine)
-        for op in ("final_exp", "final_exp_one_thread"):
-            run = (lambda lib=lib, op=op: KP._run_pairing_ops(lib, op, a))
-            outs[(op, engine)] = run()
-            ms[(op, engine)] = cuda_ms(run, reps=3)
+        run = (lambda lib=lib: KP._run_pairing_ops(lib, "final_exp", a))
+        outs[engine] = run()
+        ms[("final_exp", engine)] = cuda_ms(run, reps=3)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain = KP.pairing_ops_plain("final_exp", a)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = max(max_err(o, plain) for o in outs.values())
-    fq, _ = host_products("pairing", "pairing_ops", ("final_exp", a))
-    fq_one, _ = host_products("pairing", "pairing_ops",
-                              ("final_exp_one_thread", a))
+    fq = min(counts)
     ops_ms = fq * MADS_PER_MONT_MUL / imad_rate * 1e3
+    own_ms = counts[0] * MADS_PER_MONT_MUL / imad_rate * 1e3
     moved = 2 * a.numel() * 4
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    # the Miller loop alone, one pair: cooperative and one-thread
+    # the Miller loop alone: miller on one row
     p, q = affine_pairs(np.random.default_rng(15), 1, dev)
     mask = torch.ones(1, dtype=torch.bool, device=dev)
     for engine in K.ENGINES:
         lib = K.lib("pairing", engine=engine)
         ms[("miller", engine)] = cuda_ms(
-            lambda lib=lib: KP._run_pairing_ops(lib, "miller", p, q), reps=3)
-        ms[("miller_one_thread", engine)] = cuda_ms(
             lambda lib=lib: KP._run_miller(lib, p, q, mask), reps=3)
     inv = {}
     x = a[:, 0].contiguous()
@@ -741,18 +741,12 @@ def final_exp_rows(imad_rate, launches, finish_ms, dev):
         f"less 1, over 64): " + json.dumps(
             {k: round(v, 2) for k, v in per_op.items()}))
     log(f"[timing] final exponentiation alone (pairing_ops, 1 value): "
-        f"cooperative cios {ms[('final_exp', 'cios')]:.3f} ms, mma "
-        f"{ms[('final_exp', 'mma')]:.3f} ms; one thread cios "
-        f"{ms[('final_exp_one_thread', 'cios')]:.3f} ms, mma "
-        f"{ms[('final_exp_one_thread', 'mma')]:.3f} ms; plain "
+        f"cios {ms[('final_exp', 'cios')]:.3f} ms, mma "
+        f"{ms[('final_exp', 'mma')]:.3f} ms; plain "
         f"{plain_ms:.1f} ms; max |kernel - plain| = {err} (tolerance 0); "
-        f"bound {max(ops_ms, bytes_ms):.4f} ms ({fq} Fq products, the "
-        f"one-thread form {fq_one})")
-    log(f"[timing] Miller loop alone (1 pair): cooperative (pairing_ops) "
-        f"cios {ms[('miller', 'cios')]:.3f} ms, mma "
-        f"{ms[('miller', 'mma')]:.3f} ms; one thread (miller) cios "
-        f"{ms[('miller_one_thread', 'cios')]:.3f} ms, mma "
-        f"{ms[('miller_one_thread', 'mma')]:.3f} ms")
+        f"bound {max(ops_ms, bytes_ms):.4f} ms ({fq} Fq products)")
+    log(f"[timing] Miller loop alone (miller, 1 row): cios "
+        f"{ms[('miller', 'cios')]:.3f} ms, mma {ms[('miller', 'mma')]:.3f} ms")
     share = 2 * inv[("fp_inv_euclid", "cios")] / finish_ms * 100
     log(f"[timing] one Fq inversion on one thread (fp381_ops, n = 1): "
         f"Fermat (fp_inv) cios {inv[('fp_inv', 'cios')]:.3f} ms, mma "
@@ -772,16 +766,13 @@ def final_exp_rows(imad_rate, launches, finish_ms, dev):
              "max_abs_err": err, "ms": ms[("final_exp", "cios")],
              "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-             "library_ms": None, "executed_ops_ms": ops_ms,
+             "library_ms": None, "executed_ops_ms": own_ms,
              "mma_ms": ms[("final_exp", "mma")],
              "mma_launches": launches.get("A/mxu", {}).get("finish", 0),
-             "one_thread_ms": ms[("final_exp_one_thread", "cios")],
-             "one_thread_mma_ms": ms[("final_exp_one_thread", "mma")],
              "fp_inv_ms": inv[("fp_inv", "cios")],
              "fp_inv_euclid_ms": inv[("fp_inv_euclid", "cios")],
-             "coop_miller_ms": ms[("miller", "cios")],
-             "coop_miller_mma_ms": ms[("miller", "mma")],
-             "one_thread_miller_ms": ms[("miller_one_thread", "cios")],
+             "miller_1_row_ms": ms[("miller", "cios")],
+             "miller_1_row_mma_ms": ms[("miller", "mma")],
              "op_latency_us": per_op}]
 
 
@@ -805,13 +796,69 @@ def profiled(step, active=1):
     return box[0] if box else []
 
 
+def device_events(events):
+    """The card's activity among profiler events: kernels, memsets and
+    copies, not the profiler's own step annotations."""
+    return [e for e in events
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("ProfilerStep")]
+
+
+PROFILE_ATTEMPTS = 3
+SPIN_PREFIX = 32            # spin kernels ahead of each traced step
+
+
+def device_trace(step):
+    """The device events of one profiled call of step(), from the one of
+    PROFILE_ATTEMPTS traces that shows the most.  torch.profiler can drop
+    a trace's device events, the first ones first, or all of them (seen
+    on the H100 machine), and never adds any; so each traced step starts
+    with SPIN_PREFIX short spin kernels (torch.cuda._sleep) for the first
+    drops to take, and they are left out of the events."""
+    import torch
+
+    def padded():
+        for _ in range(SPIN_PREFIX):
+            torch.cuda._sleep(1000)
+        step()
+    best = []
+    for _ in range(PROFILE_ATTEMPTS):
+        events = [e for e in device_events(profiled(padded))
+                  if "spin_kernel" not in e.name]
+        if len(events) > len(best):
+            best = events
+    return best
+
+
+# kzg_fold's CUDA kernels by part: (name fragment, part)
+FOLD_PARTS = (("fold_lane", "fold_lane"), ("g1_sum_pass", "sums"),
+              ("fold_pair", "pair blocks"), ("fold_verdict", "verdict block"))
+
+
+def fold_split(fn):
+    """Device us of each part of one call of fn (kzg_fold; torch.profiler)
+    and its CUDA launches; None where the profiler shows no device
+    activity."""
+    kernels = device_trace(fn)
+    if not kernels:
+        return None
+    parts = {}
+    for e in kernels:
+        part = next((p for key, p in FOLD_PARTS if key in e.name), "other")
+        parts[part] = (parts.get(part, 0.0)
+                       + e.time_range.end - e.time_range.start)
+    parts["launches"] = len(kernels)
+    return parts
+
+
 def launch_split(fn, calls=50):
     """(host us a call, device us a call, CUDA launches a call, their
     names) of fn: the host clock around `calls` calls unsynchronized, and
-    torch.profiler's device events over `calls` more -- kernels, memsets
-    and copies alike, not the profiler's annotations (fn's inputs are on
-    the card already; None where the profiler shows no device
-    activity)."""
+    torch.profiler's device events over `calls` more (`device_trace`) --
+    kernels, memsets and copies alike, not the profiler's annotations
+    (fn's inputs are on the card already; None where the profiler shows
+    no device activity)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -824,11 +871,7 @@ def launch_split(fn, calls=50):
     def step():
         for _ in range(calls):
             fn()
-    # the profiler's own step annotations on the card are no launches
-    kernels = [e for e in profiled(step)
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and not getattr(e, "is_user_annotation", False)
-               and not e.name.startswith("ProfilerStep")]
+    kernels = device_trace(step)
     if not kernels:
         return host_us, None, None, []
     dev_us = sum(e.time_range.end - e.time_range.start
@@ -909,27 +952,45 @@ def row11_rows(imad_rate, launches, dev):
 
 
 # the groups whose recorded kernel inputs hold each engine against the
-# other (A on both scalars paths, B, the mesh, the legacy mesh, K6)
+# other (A on both scalars paths, B, the mesh on A and B, the legacy mesh,
+# K6, K9)
 ENGINE_PARITY_GROUPS = ("A/auto", "A/pippenger", "B/auto", "mesh A/auto",
-                        "legacy A", "kzg")
+                        "mesh B/auto", "legacy A", "kzg", "kzg9")
+# the kernels on pairing.cuh's cooperative routines that the engine parity
+# also holds against their plain versions on every path that runs them
+COOP_ROWS = ("miller", "kzg_fold")
 
 
 def phase_engine_parity(recorder):
     """Every kernel on the mma build against the cios build, word for
-    word, on the first inputs each group's main-path run gave it."""
-    kr, km = kernel_runner(), kernel_runner(engine="mma")
-    bad = []
+    word, on the first inputs each group's main-path run gave it; miller
+    and kzg_fold on both builds against their plain versions too."""
+    import torch
+    kr, km, pr = kernel_runner(), kernel_runner(engine="mma"), plain_runner()
+    bad, held = [], set()
     for (group, name), args in sorted(recorder.args.items()):
         if group not in ENGINE_PARITY_GROUPS:
             continue
-        err = max(max_err(a, b) for a, b in zip(
-            as_tuple(kr(name, *args)), as_tuple(km(name, *args))))
-        log(f"[engines] {name:14s} {group:12s} max |mma - cios| = {err} "
-            f"(tolerance 0)")
-        if err:
+        cios, mma = as_tuple(kr(name, *args)), as_tuple(km(name, *args))
+        pairs = [("mma", "cios", mma, cios)]
+        if name in COOP_ROWS:
+            plain = as_tuple(pr(name, *args))
+            pairs += [("cios", "plain", cios, plain),
+                      ("mma", "plain", mma, plain)]
+            held.add(name)
+        errs = [(x, y, max(max_err(a, b) for a, b in zip(u, v)))
+                for x, y, u, v in pairs]
+        torch.cuda.synchronize()
+        log(f"[engines] {name:14s} {group:12s} " + ", ".join(
+            f"max |{x} - {y}| = {e}" for x, y, e in errs)
+            + " (tolerance 0)")
+        if any(e for _, _, e in errs):
             bad.append((group, name))
     if bad:
-        fail(f"the mma build disagrees with the cios build on {bad}")
+        fail(f"the mma build, the cios build and the plain version "
+             f"disagree on {bad}")
+    if held != set(COOP_ROWS):
+        fail(f"{sorted(set(COOP_ROWS) - held)} ran on no path")
 
 
 def lane_rows(plan):
@@ -1483,6 +1544,8 @@ def phase_kzg(dev, seed, recorder):
             [zero_blob], [zc], [zp]), True)]
     results = []
     for label, fn, expect in cases:
+        # K9's kernel inputs are a group of their own (phase_engine_parity)
+        recorder.group = "kzg9" if label.startswith("9 blobs") else "kzg"
         t0 = time.perf_counter()
         got = fn()
         torch.cuda.synchronize()
@@ -1725,22 +1788,25 @@ def nbytes(xs) -> int:
 
 
 # (kernel, group whose first call it is timed on): workload A's shapes
-# (finish on both wsig widths: 1 lane from scalars_msm, 256 from
-# scalars_group) and the KZG path's (eval on the padded 6-blob batch, the
-# fold's 32 lanes, the msm's 4096, validation of its 16-lane miss bucket)
+# (miller also at B's 64 rows; finish on both wsig widths: 1 lane from
+# scalars_msm, 256 from scalars_group) and the KZG path's (eval on the
+# padded 6-blob batch, the fold's 32 lanes, the msm's 4096, validation of
+# its 16-lane miss bucket)
 TIMED = [("g1_validate", "A/auto"), ("prepare", "A/auto"), ("h2c", "A/auto"),
          ("scalars_group", "A/auto"), ("scalars_msm", "A/pippenger"),
-         ("miller", "A/auto"), ("finish", "A/auto"),
+         ("miller", "A/auto"), ("miller", "B/auto"), ("finish", "A/auto"),
          ("finish", "A/pippenger"), ("gather_hm", "mesh A/auto"),
          ("shard_partials", "mesh A/auto"), ("scalars", "legacy A"),
          ("lane_affine", "legacy A"), ("aggregate_points", "parity g1"),
          ("aggregate_points", "parity g2"), ("g1_validate", "kzg"),
          ("kzg_eval", "kzg"), ("kzg_fold", "kzg"), ("kzg_msm", "kzg")]
 GROUP_PATH = {"A/auto": "ladder", "A/pippenger": "pippenger", "kzg": "kzg",
+              "B/auto": "ladder (B)",
               "mesh A/auto": "mesh", "legacy A": "legacy mesh",
               "parity g1": "parity (G1)", "parity g2": "parity (G2)"}
 # the mxu-force twin of a path (the mma engine's launches)
-MXU_GROUP = {"A/auto": "A/mxu", "mesh A/auto": "mesh A/mxu", "kzg": "kzg/mxu"}
+MXU_GROUP = {"A/auto": "A/mxu", "B/auto": "B/mxu", "mesh A/auto": "mesh A/mxu",
+             "kzg": "kzg/mxu"}
 # the TPU program each kernel replaces on the KZG path, where it differs
 KZG_REPLACES = {"g1_validate": "teku_tpu/ops/kzg.py:142"}
 
@@ -1822,6 +1888,52 @@ def lane_affine_least_work(pk_r):
     return 3 * (m - 1) + pow_chain(P) + 4 * m if m else 0
 
 
+def plain_products(step):
+    """Fq products that step(), plain PyTorch code on host tensors,
+    executes: each element of each Montgomery product or square of
+    limbs.py it calls."""
+    import math
+    import torch
+    from teku_tpu_torch.ops import limbs
+    count = [0]
+    real = limbs.mont_mul, limbs.mont_sqr
+
+    def counted(fn):
+        def run(*xs):
+            count[0] += math.prod(torch.broadcast_shapes(
+                *(x.shape for x in xs))[:-1])
+            return fn(*xs)
+        return run
+    limbs.mont_mul, limbs.mont_sqr = (counted(fn) for fn in real)
+    try:
+        step()
+    finally:
+        limbs.mont_mul, limbs.mont_sqr = real
+    return count[0]
+
+
+def pairing_least_work(agg, hm, x):
+    """{routine: (the host build's Fq products, the plain version's)} for
+    one Miller row (agg, hm: one affine pair), one final exponentiation
+    and one Fq12 product (x: one Fq12 value).  The plain version follows
+    the reference's formulas (a Karatsuba Fq12 product of 54 Fq products,
+    a Granger-Scott square of 39), the cooperative routines their own (a
+    product over the w basis of 108, a cyclotomic square of 18), each
+    count with the loads and stores of its words; the least work of each
+    routine is the fewer."""
+    import torch
+    from teku_tpu_torch.ops.kernels import pairing as KP
+    agg, hm, x = agg[:1].cpu(), hm[:1].cpu(), x[:1].cpu()
+    one = torch.ones(1, dtype=torch.bool)
+    calls = {"miller": ("miller", (agg, hm, one)),
+             "final_exp": ("pairing_ops", ("final_exp", x)),
+             "mul": ("pairing_ops", ("mul", x, x))}
+    pr = plain_runner()
+    return {k: (host_products("pairing", name, args)[0],
+                plain_products(lambda name=name, args=args: pr(name, *args)))
+            for k, (name, args) in calls.items()}
+
+
 def host_products(stem, name, args):
     """(Fq, Fr) products the host C++ build of the kernel executes."""
     from teku_tpu_torch.ops import _build
@@ -1843,17 +1955,21 @@ def phase_timing(recorder, launches, dev, regimes):
         f"MHz: {imad_rate / 1e12:.2f} T IMAD/s; HBM {HBM_BYTES_PER_S / 1e12} TB/s")
     kr, pr = kernel_runner(), plain_runner()
     km = kernel_runner(engine="mma")
-    # two Miller loops and one final exponentiation, as pairing.cuh
-    # computes them: pairing.cu's miller on one lane plus its finish on one
-    # row and one lane (one more Miller loop and the final exponentiation)
+    # the least work of the pairing routines (pairing_least_work), and
+    # what the cooperative build executes beyond it
     agg, hm, _ = recorder.args[("A/pippenger", "miller")]
-    ml, wsig = recorder.args[("A/pippenger", "finish")]
-    pairing_products = (
-        host_products("pairing", "miller", (agg[:1], hm[:1],
-                                            torch.ones(1, dtype=torch.bool)))[0]
-        + host_products("pairing", "finish", (ml[:1], wsig[:1]))[0])
-    log(f"[timing] 2 Miller loops + 1 final exponentiation: "
-        f"{pairing_products} Fq products (host build of pairing.cu)")
+    ml, _ = recorder.args[("A/pippenger", "finish")]
+    counts = pairing_least_work(agg, hm, ml)
+    least = {k: min(v) for k, v in counts.items()}
+    extra = {k: v[0] - least[k] for k, v in counts.items()}
+    # kzg_fold's two Miller loops, their product and one final
+    # exponentiation
+    pairing_products = (2 * least["miller"] + least["mul"]
+                        + least["final_exp"])
+    log(f"[timing] Fq products (host build of pairing.cu, plain version): "
+        + ", ".join(f"{k} {v[0]}, {v[1]}" for k, v in counts.items())
+        + f"; 2 Miller loops + 1 product + 1 final exponentiation, the "
+        f"least of each: {pairing_products}")
     rows = []
     for name, group in TIMED:
         stem, replaces = KERNELS[name]
@@ -1896,6 +2012,12 @@ def phase_timing(recorder, launches, dev, regimes):
         moved = nbytes(args) + nbytes(kout)
         if name.startswith("kzg_"):
             fq, fr, moved = kzg_least_work(name, args, pairing_products)
+        elif name == "miller":
+            fq -= extra["miller"] * int(args[2].sum())
+        elif name == "finish":
+            # one Miller loop, one product, one final exponentiation on
+            # the block (the sum of A's weighted signatures is finite)
+            fq -= extra["miller"] + extra["mul"] + extra["final_exp"]
         elif name == "lane_affine":
             fq, fr = lane_affine_least_work(args[0]), 0
         elif group == "kzg":
@@ -1935,6 +2057,15 @@ def phase_timing(recorder, launches, dev, regimes):
         if mma_err != 0:
             fail(f"{name}'s mma build disagrees with its cios build at "
                  f"{group}'s shapes")
+        if name == "kzg_fold":
+            split = {"cios": fold_split(lambda: kr(name, *args)),
+                     "mma": fold_split(lambda: km(name, *args))}
+            log(f"[timing] kzg_fold's CUDA kernels a call, device us "
+                f"(torch.profiler): " + json.dumps(
+                    {e: "not measured" if v is None else
+                     {k: round(t, 1) for k, t in v.items()}
+                     for e, v in split.items()}))
+            rows[-1]["device_split_us"] = split
         if name == "gather_hm":
             # the wrapper a caller calls, its outputs held as the mesh does
             from teku_tpu_torch.ops.kernels import shard as KSH
@@ -1964,7 +2095,8 @@ def phase_timing(recorder, launches, dev, regimes):
                      f"(kernels, memsets and copies), expected 1")
     finish_ms = next(r["ms"] for r in rows
                      if r["name"] == "finish" and r["path"] == "ladder")
-    return (rows + final_exp_rows(imad_rate, launches, finish_ms, dev)
+    return (rows + final_exp_rows(imad_rate, launches, finish_ms,
+                                  counts["final_exp"], dev)
             + row11_rows(imad_rate, launches, dev))
 
 

@@ -19,13 +19,17 @@
 //
 // kzg_fold replaces fold_pairing_kernel (kzg.py:149): per lane [s_i]P_i by
 // the same ladder, masked sums into group a and group b (halving passes
-// over both), then one thread per group: the affine sum (group b negated)
-// and its Miller loop against [G2, sG2] (pairing.cuh); a last thread
-// multiplies the two and runs the final exponentiation == 1.  The two
-// affine sums and their infinity flags are outputs too.
+// over both), then one block of two warps per group (pairing.cuh's
+// cooperative routines): the affine sum (group b negated; one Fermat
+// inverse on one lane) and its Miller loop against [G2, sG2] (coop_miller),
+// ONE for an infinite sum, whose block skips the loop as a whole; a last
+// block multiplies the two Miller values and runs the final exponentiation
+// == 1 (coop_final_exp).  The two affine sums and their infinity flags are
+// outputs too.
 //
 // Bound: 32-bit multiply-adds.  Per ladder 252 doublings and 78 adds of
-// G1; per fold two Miller loops and one final exponentiation, serial.
+// G1; per fold two Miller loops side by side (345 rounds of independent Fq
+// products deep each) and one final exponentiation, on blocks.
 
 #include "fp381.cuh"
 #include "fr255.cuh"
@@ -173,29 +177,52 @@ DEVNI void fold_lane(long i, const int32_t* xs, const int32_t* ys, const uint8_t
     }
 }
 
-// group g's sum (b negated) to affine, and its Miller loop against g2[g]
-DEVNI void fold_pair(long g, const g1p* acc, long n, const int32_t* g2, int32_t* pair,
-                     uint8_t* pair_inf, fq12* ml) {
-    g1p s = acc[g * n];
-    if (g == 1) s = pt_neg(s);
-    bool is_inf = pt_is_inf(s);
-    fp x, y;
-    g1_to_affine(s, &x, &y);
-    fp_store(pair + 24 * g, x);
-    fp_store(pair + 24 * g + 12, y);
-    if (LIVE) pair_inf[g] = is_inf ? 1 : 0;
-    fq12 f = fq12_one();
-    WHEN(!is_inf) {
-        fq12 m = miller_loop(x, y, fq2_load(g2 + 48 * g), fq2_load(g2 + 48 * g + 24));
-        if (!is_inf) f = m;
-    }
-    if (LIVE) ml[g] = f;
+// group g's sum (b negated) to affine, written out, and its Miller value
+// against g2[g] as canonical words into ml; ONE for an infinite sum (the
+// flag is one value for the whole block, read after a barrier)
+DEVNI void fold_pair_coop(coop_t* S, long g, const g1p* acc, long n, const int32_t* g2,
+                          int32_t* pair, uint8_t* pair_inf, int32_t* ml) {
+    COOP_FOR(j, 1) {
+        g1p s = acc[g * n];
+        if (g == 1) s = pt_neg(s);
+        bool finite = !pt_is_inf(s);
+        fp x, y;
+        g1_to_affine(s, &x, &y);            // infinity -> (0, 0)
+        fq2 qx = fq2_load(g2 + 48 * g), qy = fq2_load(g2 + 48 * g + 24);
+        fp xw = fp_from_mont(x), yw = fp_from_mont(y);
+        if (own) {
+            for (int k = 0; k < 12; k++) {
+                pair[24 * g + k] = (int32_t)xw.v[k];
+                pair[24 * g + 12 + k] = (int32_t)yw.v[k];
+            }
+            pair_inf[g] = finite ? 0 : 1;
+            coop_set_pair(S, x, y, qx, qy);
+            S->flag = finite;
+        }
+    } COOP_END
+    if (S->flag)
+        coop_miller(S, &S->f[0], &S->f[1]);
+    else
+        coop_fq12_one(&S->f[0]);
+    coop_fq12_store(ml + 144 * g, &S->f[0]);
 }
 
-DEVNI void fold_verdict(long i, const fq12* ml, uint8_t* ok) {
-    bool one = fq12_is_one(final_exponentiation(fq12_mul(ml[0], ml[1])));
-    if (LIVE) ok[0] = one ? 1 : 0;
+COOP_KERNEL(fold_pair_coop, (const g1p* acc, long n, const int32_t* g2, int32_t* pair,
+                             uint8_t* pair_inf, int32_t* ml), acc, n, g2, pair, pair_inf, ml)
+
+// the product of the two Miller values, its final exponentiation == 1
+DEVNI void fold_verdict_coop(coop_t* S, long, const int32_t* ml, uint8_t* ok) {
+    coop_fq12_load(&S->f[0], ml);
+    coop_fq12_load(&S->f[1], ml + 144);
+    coop_fq12_mul(S, &S->f[0], &S->f[0], &S->f[1]);
+    coop_final_exp(S);
+    COOP_FOR(j, 1) {
+        bool one = fq12_is_one(S->f[1]);
+        if (own) ok[0] = one ? 1 : 0;
+    } COOP_END
 }
+
+COOP_KERNEL(fold_verdict_coop, (const int32_t* ml, uint8_t* ok), ml, ok)
 
 #ifdef __CUDACC__
 __global__ void g1_sum_pass_kernel(long m, g1p* x, long n, long half, long off) {
@@ -217,15 +244,6 @@ __global__ void fold_lane_kernel(long m, const int32_t* xs, const int32_t* ys,
                                  long n) {
     SHELL(m, fold_lane(ix, xs, ys, inf, valid, group_b, scalars, acc, n));
 }
-
-__global__ void fold_pair_kernel(long m, const g1p* acc, long n, const int32_t* g2,
-                                 int32_t* pair, uint8_t* pair_inf, fq12* ml) {
-    SHELL(m, fold_pair(ix, acc, n, g2, pair, pair_inf, ml));
-}
-
-__global__ void fold_verdict_kernel(long m, const fq12* ml, uint8_t* ok) {
-    SHELL(m, fold_verdict(ix, ml, ok));
-}
 #endif
 
 // xs, ys (n, 12) affine words, present (n,), scalars (n, 8) words;
@@ -242,17 +260,18 @@ extern "C" int kzg_msm(const int32_t* xs, const int32_t* ys, const uint8_t* pres
 
 // xs, ys (n, 12) affine words; inf, valid, group_b (n,); scalars (n, 8);
 // g2 (2, 2, 2, 12): [G2, sG2] affine (x, y) x (c0, c1) words; scratch
-// 2n G1 points + 2 Fq12; ok (1,), pair (2, 2, 12), pair_inf (2,) out
+// 2n G1 points + 2 x 144 words (the Miller values); ok (1,), pair
+// (2, 2, 12), pair_inf (2,) out
 extern "C" int kzg_fold(const int32_t* xs, const int32_t* ys, const uint8_t* inf,
                         const uint8_t* valid, const uint8_t* group_b, const int32_t* scalars,
                         const int32_t* g2, void* scratch, uint8_t* ok, int32_t* pair,
                         uint8_t* pair_inf, long n, void* stream) {
     g1p* acc = (g1p*)scratch;
-    fq12* ml = (fq12*)(acc + 2 * n);
+    int32_t* ml = (int32_t*)(acc + 2 * n);
     LAUNCH(n, fold_lane, xs, ys, inf, valid, group_b, scalars, acc, n);
     for (long m = n; m > 1; m -= m / 2)
         LAUNCH(2 * (m / 2), g1_sum_pass, acc, n, m / 2, m - m / 2);
-    LAUNCH(2, fold_pair, (const g1p*)acc, n, g2, pair, pair_inf, ml);
-    LAUNCH(1, fold_verdict, (const fq12*)ml, ok);
+    COOP_LAUNCH(2, fold_pair_coop, (const g1p*)acc, n, g2, pair, pair_inf, ml);
+    COOP_LAUNCH(1, fold_verdict_coop, (const int32_t*)ml, ok);
     return 0;
 }

@@ -155,7 +155,8 @@ def kzg_fold(xs, ys, inf, valid, group_b, scalars, g2, engine="cios"):
 def _run_kzg_fold(library, xs, ys, inf, valid, group_b, scalars, g2):
     n = xs.shape[0]
     dev = xs.device
-    # 2n Jacobian G1 points (36 words) + 2 Fq12 (144 words), Montgomery
+    # 2n Jacobian G1 points (36 words, Montgomery) + the two Miller
+    # values (144 canonical words each)
     scratch = torch.empty(2 * n * 36 + 2 * 144, dtype=torch.int32,
                           device=dev)
     ok = torch.empty(1, dtype=torch.bool, device=dev)

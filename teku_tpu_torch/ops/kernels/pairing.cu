@@ -3,7 +3,13 @@
 // miller replaces stage_miller (teku_tpu/ops/verify.py:266): the
 // optimal-ate Miller loop with the reference's doubling / addition line
 // formulas (pairing.py:_dbl_step, _add_step) and sparse line multiply
-// (_mul_by_line), so row values equal the reference's.  One thread per row.
+// (_mul_by_line), so row values equal the reference's.  One block of two
+// warps per row runs pairing.cuh's cooperative Miller loop (coop_miller):
+// the loop is one chain of 68 steps, and each step's Fq12 square, line and
+// line product spread their independent Fq products over the block's 64
+// lanes, where one thread ran them in series.  A masked row stores ONE; its
+// mask is one value for the whole block, so the block skips the loop as a
+// whole and every warp stays whole through its products (the mma build).
 //
 // finish replaces stage_finish (verify.py:272, _finish :112).  The TPU
 // program reduces all rows in one dispatch; blocks on Hopper run in no
@@ -17,38 +23,38 @@
 // serial, each one binary extended Euclid inversion (fp_inv_euclid).
 //
 // pairing_ops exposes the cooperative Fq12 product, square, cyclotomic
-// square, Miller loop and final exponentiation, and the one-thread final
-// exponentiation, on arrays of words (tests and chip_smoke.py; no caller
-// on the verify path).
+// square and final exponentiation on arrays of words (tests and
+// chip_smoke.py; no caller on the verify path).
 //
-// Bound: 32-bit multiply-adds -- 63 doubling and 5 addition steps per
-// Miller row; the verdict is a chain of ~750 dependent Fq12 operations and
-// two serial inversions.
+// Bound: 32-bit multiply-adds -- per Miller row 63 doubling and 5 addition
+// steps, 5 and 6 rounds of independent Fq products on the block (345
+// rounds deep); the verdict is a chain of ~750 dependent Fq12 operations
+// and two serial inversions.
 
 #include "pairing.cuh"
 
-DEVNI void miller_row(long i, const int32_t* agg, const int32_t* hm, const uint8_t* mask,
-                      int32_t* out) {
-    fq12 f = fq12_one();
-    bool use = mask[i] != 0;
-    WHEN(use) {
-        fq12 m = miller_loop(fp_load(agg + 24 * i), fp_load(agg + 24 * i + 12),
-                             fq2_load(hm + 48 * i), fq2_load(hm + 48 * i + 24));
-        if (use) f = m;
+// row i's Miller value on one block; ONE where the row is masked
+DEVNI void miller_coop(coop_t* S, long i, const int32_t* agg, const int32_t* hm,
+                       const uint8_t* mask, int32_t* out) {
+    if (mask[i]) {
+        COOP_FOR(j, 1) {
+            fp px = fp_load(agg + 24 * i), py = fp_load(agg + 24 * i + 12);
+            fq2 qx = fq2_load(hm + 48 * i), qy = fq2_load(hm + 48 * i + 24);
+            if (own) coop_set_pair(S, px, py, qx, qy);
+        } COOP_END
+        coop_miller(S, &S->f[0], &S->f[1]);
+    } else {
+        coop_fq12_one(&S->f[0]);
     }
-    fq12_store(out + 144 * i, f);
+    coop_fq12_store(out + 144 * i, &S->f[0]);
 }
 
-#ifdef __CUDACC__
-__global__ void miller_row_kernel(long n, const int32_t* agg, const int32_t* hm,
-                                  const uint8_t* mask, int32_t* out) {
-    SHELL(n, miller_row(ix, agg, hm, mask, out));
-}
-#endif
+COOP_KERNEL(miller_coop, (const int32_t* agg, const int32_t* hm, const uint8_t* mask,
+                          int32_t* out), agg, hm, mask, out)
 
 extern "C" int miller(const int32_t* agg, const int32_t* hm, const uint8_t* mask, int32_t* out,
                       long n, void* stream) {
-    LAUNCH(n, miller_row, agg, hm, mask, out);
+    COOP_LAUNCH(n, miller_coop, agg, hm, mask, out);
     return 0;
 }
 
@@ -95,31 +101,13 @@ extern "C" int finish(int32_t* ml, long rows, int32_t* wsig, long lanes, uint8_t
     return 0;
 }
 
-enum { OP_MUL = 0, OP_SQR = 1, OP_CYCLO_SQR = 2, OP_FINAL_EXP = 3, OP_FINAL_EXP_ONE_THREAD = 4,
-       OP_MILLER = 5 };
+enum { OP_MUL = 0, OP_SQR = 1, OP_CYCLO_SQR = 2, OP_FINAL_EXP = 3 };
 
-// element i of the cooperative ops: a, b, out (n, 144) canonical words;
-// the product and squares applied `reps` times (a b^reps, a^(2^reps)).
-// OP_MILLER: a (n, 24) affine G1 words P, b (n, 48) affine G2 words Q,
-// out the Miller value of (P, Q), as pairing.cuh's miller_loop gives it
+// element i: a, b, out (n, 144) canonical words; the product and squares
+// applied `reps` times (a b^reps, a^(2^reps))
 DEVNI void pairing_op_coop(coop_t* S, long i, int op, const int32_t* a, const int32_t* b,
                            int32_t* out, int reps) {
     fq12 *x = &S->f[0], *y = &S->f[1];
-    if (op == OP_MILLER) {
-        COOP_FOR(j, 1) {
-            fp px = fp_load(a + 24 * i), py = fp_load(a + 24 * i + 12);
-            fq2 qx = fq2_load(b + 48 * i), qy = fq2_load(b + 48 * i + 24);
-            if (own) {
-                S->r[R_XQ] = qx;
-                S->r[R_YQ] = qy;
-                S->r[R_PX] = fq2_make(fp_neg(px), fp_zero());
-                S->r[R_PY] = fq2_make(py, fp_zero());
-            }
-        } COOP_END
-        coop_miller(S, x, y);
-        coop_fq12_store(out + 144 * i, x);
-        return;
-    }
     coop_fq12_load(x, a + 144 * i);
     if (op == OP_MUL) coop_fq12_load(y, b + 144 * i);
     if (op == OP_FINAL_EXP) {
@@ -138,21 +126,8 @@ DEVNI void pairing_op_coop(coop_t* S, long i, int op, const int32_t* a, const in
 COOP_KERNEL(pairing_op_coop, (int op, const int32_t* a, const int32_t* b, int32_t* out, int reps),
             op, a, b, out, reps)
 
-DEVNI void final_exp_one(long i, const int32_t* a, int32_t* out) {
-    fq12_store(out + 144 * i, final_exponentiation(fq12_load(a + 144 * i)));
-}
-
-#ifdef __CUDACC__
-__global__ void final_exp_one_kernel(long n, const int32_t* a, int32_t* out) {
-    SHELL(n, final_exp_one(ix, a, out));
-}
-#endif
-
 extern "C" int pairing_ops(int op, const int32_t* a, const int32_t* b, int32_t* out, long n,
                            int reps, void* stream) {
-    if (op == OP_FINAL_EXP_ONE_THREAD)
-        LAUNCH(n, final_exp_one, a, out);
-    else
-        COOP_LAUNCH(n, pairing_op_coop, op, a, b, out, reps);
+    COOP_LAUNCH(n, pairing_op_coop, op, a, b, out, reps);
     return 0;
 }

@@ -4,104 +4,14 @@
 // reference's doubling / addition line formulas (teku_tpu/ops/pairing.py:
 // _dbl_step, _add_step), its sparse line multiply (_mul_by_line) and its
 // final exponentiation chain, so Miller values equal the reference's.
-// Every function is __noinline__ (compile time and registers: one Fq12 is
-// 144 words).
+// Every Miller loop and final exponentiation runs on the cooperative
+// routines below (one block of two warps a value): coop_dbl_step,
+// coop_add_step and coop_fq12_mul_by_line compute the reference's line
+// values in parallel rounds.  Every function is __noinline__ (compile time
+// and registers: one Fq12 is 144 words).
 
 #pragma once
 #include "fp381.cuh"
-
-struct line_t { fq2 c0, c1, c2; };
-
-DEVNI g2p dbl_step(const g2p& t, const fp& px_neg, const fp& py, line_t* l) {
-    fq2 A = fq2_sqr(t.x), B = fq2_sqr(t.y), Z2 = fq2_sqr(t.z);
-    fq2 XB = fq2_add(t.x, B), E = fq2_add(fq2_add(A, A), A);
-    fq2 XB2 = fq2_sqr(XB), Cc = fq2_sqr(B), Fv = fq2_sqr(E), YZ = fq2_mul(t.y, t.z);
-    fq2 D = fq2_sub(fq2_sub(XB2, A), Cc);
-    D = fq2_add(D, D);
-    g2p r;
-    r.z = fq2_add(YZ, YZ);
-    r.x = fq2_sub(Fv, fq2_add(D, D));
-    fq2 C2 = fq2_add(Cc, Cc), C4 = fq2_add(C2, C2), C8 = fq2_add(C4, C4);
-    r.y = fq2_sub(fq2_mul(E, fq2_sub(D, r.x)), C8);
-    l->c0 = fq2_mul_fp(fq2_mul_by_xi(fq2_mul(r.z, Z2)), py);
-    l->c1 = fq2_sub(fq2_mul(E, t.x), fq2_add(B, B));
-    l->c2 = fq2_mul_fp(fq2_mul(E, Z2), px_neg);
-    return r;
-}
-
-DEVNI g2p add_step(const g2p& t, const fq2& xq, const fq2& yq, const fp& px_neg, const fp& py,
-                   line_t* l) {
-    fq2 Z2 = fq2_sqr(t.z);
-    fq2 U2 = fq2_mul(xq, Z2), Z3cu = fq2_mul(Z2, t.z);
-    fq2 S2 = fq2_mul(yq, Z3cu);
-    fq2 H = fq2_sub(U2, t.x), rr = fq2_sub(S2, t.y);
-    fq2 H2 = fq2_sqr(H), R2 = fq2_sqr(rr);
-    g2p r;
-    r.z = fq2_mul(t.z, H);
-    fq2 H3 = fq2_mul(H, H2), V = fq2_mul(t.x, H2);
-    r.x = fq2_sub(fq2_sub(R2, H3), fq2_add(V, V));
-    r.y = fq2_sub(fq2_mul(rr, fq2_sub(V, r.x)), fq2_mul(t.y, H3));
-    l->c0 = fq2_mul_fp(fq2_mul_by_xi(r.z), py);
-    l->c1 = fq2_sub(fq2_mul(rr, xq), fq2_mul(yq, r.z));
-    l->c2 = fq2_mul_fp(rr, px_neg);
-    return r;
-}
-
-// a * (c1 v + c2 v^2) for a in Fq6
-DEV fq6 mul_by_c12(const fq6& a, const fq2& c1, const fq2& c2) {
-    return fq6_make(fq2_mul_by_xi(fq2_add(fq2_mul(a.c1, c2), fq2_mul(a.c2, c1))),
-                    fq2_add(fq2_mul(a.c0, c1), fq2_mul_by_xi(fq2_mul(a.c2, c2))),
-                    fq2_add(fq2_mul(a.c0, c2), fq2_mul(a.c1, c1)));
-}
-
-// f * (c0 + (c1 v + c2 v^2) w)
-DEVNI fq12 mul_by_line(const fq12& f, const line_t& l) {
-    fq6 t1 = mul_by_c12(f.c1, l.c1, l.c2);
-    fq6 s0 = mul_by_c12(f.c0, l.c1, l.c2);
-    fq6 f0c0 = fq6_mul_by_fq2(f.c0, l.c0), f1c0 = fq6_mul_by_fq2(f.c1, l.c0);
-    return fq12_make(fq6_add(f0c0, fq6_mul_by_v(t1)), fq6_add(s0, f1c0));
-}
-
-// Miller loop over the bits of |z| below the top bit; conjugated (z < 0)
-DEVNI fq12 miller_loop(const fp& px, const fp& py, const fq2& qx, const fq2& qy) {
-    fp px_neg = fp_neg(px);
-    g2p t;
-    t.x = qx;
-    t.y = qy;
-    t.z = fq2_one();
-    fq12 f = fq12_one();
-    line_t l;
-    for (int i = E_XABS_BITS - 2; i >= 0; i--) {
-        f = fq12_sqr(f);
-        t = dbl_step(t, px_neg, py, &l);
-        f = mul_by_line(f, l);
-        if ((E_XABS[i >> 5] >> (i & 31)) & 1) {
-            t = add_step(t, qx, qy, px_neg, py, &l);
-            f = mul_by_line(f, l);
-        }
-    }
-    return fq12_conj(f);
-}
-
-DEVNI fq12 pow_z(const fq12& f) {
-    fq12 r = f;
-    for (int i = E_XABS_BITS - 2; i >= 0; i--) {
-        r = fq12_sqr(r);
-        if ((E_XABS[i >> 5] >> (i & 31)) & 1) r = fq12_mul(r, f);
-    }
-    return fq12_conj(r);
-}
-
-// f^(3 (p^12 - 1) / r): the reference's chain (pairing.py:final_exponentiation)
-DEVNI fq12 final_exponentiation(const fq12& f) {
-    fq12 g = fq12_mul(fq12_conj(f), fq12_inv(f));
-    g = fq12_mul(fq12_frobenius(g, 2), g);
-    fq12 a = fq12_mul(pow_z(g), fq12_conj(g));
-    a = fq12_mul(pow_z(a), fq12_conj(a));
-    fq12 b = fq12_mul(pow_z(a), fq12_frobenius(a, 1));
-    fq12 c = fq12_mul(fq12_mul(pow_z(pow_z(b)), fq12_frobenius(b, 2)), fq12_conj(b));
-    return fq12_mul(c, fq12_mul(fq12_sqr(g), g));
-}
 
 // One level of the reference's halving reductions over the leading axis
 // (points.py:point_batch_sum, pairing.py:batch_product), on rows of
@@ -147,8 +57,8 @@ __global__ void tail_pass_kernel(long n_words, int32_t* x, long n, long width) {
 // Cooperative routines: one block of COOP_LANES threads works on one value
 // --------------------------------------------------------------------------
 //
-// The one-thread miller_loop and final_exponentiation above run ~20,000
-// dependent Fq products on one thread.  Here a block of two warps holds its
+// A Miller loop and a final exponentiation are ~20,000 dependent Fq
+// products, 22 and 38 ms on one thread.  Here a block of two warps holds its
 // Fq12 values in shared memory (coop_t) and spreads each operation's
 // independent products over its 64 lanes; its latency is then one or a few
 // products plus the adds that combine them:
@@ -165,11 +75,11 @@ __global__ void tail_pass_kernel(long n_words, int32_t* x, long n, long width) {
 //                   squares at 2 lanes each, 6 lanes combine; cyclotomic
 //                   values only (the pow_z squares, as the reference's)
 //   coop_dbl_step / coop_add_step   the reference's line formulas
-//                   (pairing.py:_dbl_step, _add_step, as dbl_step and
-//                   add_step above) in 3 / 5 rounds of at most 7 independent
-//                   Fq2 products at 3 lanes each (coop_round), in place of
-//                   31 / 40 products in series
-//   coop_final_exp  the reference's chain (final_exponentiation above); the
+//                   (teku_tpu/ops/pairing.py:_dbl_step, _add_step) in
+//                   3 / 5 rounds of at most 7 independent Fq2 products at
+//                   3 lanes each (coop_round), in place of 31 / 40
+//                   products in series
+//   coop_final_exp  the reference's chain (pairing.py:final_exponentiation); the
 //                   Fq12 inverse stays serial, its Fq inverse the binary
 //                   extended Euclid (fp_inv_euclid), as the affine sum's in
 //                   finish
@@ -178,11 +88,12 @@ __global__ void tail_pass_kernel(long n_words, int32_t* x, long n, long width) {
 // 700 W (65 in one launch less one, over 64): product 10.3 us, square 6.7,
 // cyclotomic square 5.0 (the mma build 25.0, 11.7, 11.0), where fq12_mul on
 // one thread runs 54 products in series; a final exponentiation 2.5 ms
-// against the one-thread routine's 37.6.  The adds that combine the
-// products cost about as much as the products.
+// against the one-thread routine's 37.6 (the Miller loop 2.0 against
+// 22.0).  The adds that combine the products cost about as much as the
+// products.
 //
 // Fq12 values are unique in [0, P) per component, so every routine gives
-// the one-thread routine's words; the Miller line coefficients keep the
+// the plain version's words; the Miller line coefficients keep the
 // reference's formulas (they fix the projective representative).
 //
 // Phases.  COOP_FOR(j, n) { ... } COOP_END runs a body for j < n: on the
@@ -441,8 +352,8 @@ DEVNI void coop_final_exp(coop_t* S) {
     coop_fq12_mul(S, s1, s1, s2);
 }
 
-// the doubling step of dbl_step above on T = R_TX..R_TZ; the line's c0,
-// c1, c2 go to `line`'s c0.c0, c1.c1, c1.c2
+// the doubling step (teku_tpu/ops/pairing.py:_dbl_step) on T = R_TX..R_TZ;
+// the line's c0, c1, c2 go to `line`'s c0.c0, c1.c1, c1.c2
 enum { D_A = R_FREE, D_B, D_Z2, D_YZ, D_E, D_XB, D_RZ, D_XB2, D_CC, D_FV, D_EX, D_EZ2, D_RZZ2,
        D_RX, D_DMX, D_XIT, D_ED };
 
@@ -501,7 +412,7 @@ DEVNI void coop_dbl_step(coop_t* S, fq12* line) {
     } COOP_END
 }
 
-// the addition step of add_step above (Q = R_XQ, R_YQ)
+// the addition step (teku_tpu/ops/pairing.py:_add_step; Q = R_XQ, R_YQ)
 enum { A_Z2 = R_FREE, A_U2, A_Z3, A_H, A_S2, A_H2, A_RZ, A_RR, A_XIR, A_R2, A_H3, A_V, A_RRXQ,
        A_YQRZ, A_RX, A_VMX, A_RYA, A_RYB };
 
@@ -567,8 +478,9 @@ DEVNI void coop_add_step(coop_t* S, fq12* line) {
     } COOP_END
 }
 
-// *f = the Miller loop of P = (-R_PX, R_PY) and Q = (R_XQ, R_YQ), as
-// miller_loop above; `line` is scratch
+// *f = the Miller loop of P = (-R_PX, R_PY) and Q = (R_XQ, R_YQ) over the
+// bits of |z| below the top bit, conjugated (z < 0), as the reference's
+// pairing.py:miller_loop; `line` is scratch
 DEVNI void coop_miller(coop_t* S, fq12* f, fq12* line) {
     COOP_FOR(k, 6) {
         fq2 zero = fq2_zero(), one = fq2_one();
@@ -589,6 +501,21 @@ DEVNI void coop_miller(coop_t* S, fq12* f, fq12* line) {
         }
     }
     coop_fq12_conj(f, f);
+}
+
+// the Miller loop's affine P and Q into their registers (one lane's stores)
+DEV void coop_set_pair(coop_t* S, const fp& px, const fp& py, const fq2& qx, const fq2& qy) {
+    S->r[R_XQ] = qx;
+    S->r[R_YQ] = qy;
+    S->r[R_PX] = fq2_make(fp_neg(px), fp_zero());
+    S->r[R_PY] = fq2_make(py, fp_zero());
+}
+
+DEVNI void coop_fq12_one(fq12* f) {
+    COOP_FOR(k, 6) {
+        fq2 v = k == 0 ? fq2_one() : fq2_zero();
+        if (own) *fq12_at(f, k) = v;
+    } COOP_END
 }
 
 // canonical words <-> an Fq12 slot, a component a lane

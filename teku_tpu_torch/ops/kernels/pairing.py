@@ -1,10 +1,9 @@
-"""pairing.cu: Miller loops per message row (replaces
+"""pairing.cu: Miller loops per message row, a block per row (replaces
 teku_tpu/ops/verify.py:stage_miller) and the batch verdict (replaces
 stage_finish: cross-row product, weighted-signature sum, e(-g1, sum),
-final exponentiation, on pairing.cuh's cooperative routines).
-pairing_ops exposes those routines on Fq12 words, and the cooperative
-Miller loop on affine points (tests, chip_smoke.py; not a stage of the
-verify pipeline)."""
+final exponentiation), both on pairing.cuh's cooperative routines.
+pairing_ops exposes the cooperative Fq12 operations on Fq12 words
+(tests, chip_smoke.py; not a stage of the verify pipeline)."""
 
 import torch
 
@@ -69,27 +68,19 @@ def finish_plain(ml, wsig):
     return V.stage_finish(T.fq12_from_words(ml), g2_from_words(wsig))[None]
 
 
-# pairing.cu's op codes: the cooperative routines, and the one-thread
-# final exponentiation of pairing.cuh (mul and miller take b)
-PAIRING_OPS = {"mul": 0, "sqr": 1, "cyclo_sqr": 2, "final_exp": 3,
-               "final_exp_one_thread": 4, "miller": 5}
+# pairing.cu's op codes: the cooperative routines (mul takes b)
+PAIRING_OPS = {"mul": 0, "sqr": 1, "cyclo_sqr": 2, "final_exp": 3}
 
 
 def pairing_ops(op: str, a, b=None, reps=1, engine="cios"):
     """a, b (n, 12, 12) Fq12 words -> (n, 12, 12) words: a b^reps,
     a^(2^reps) (the square, or the cyclotomic square for a in the
-    cyclotomic subgroup), or the final exponentiation of a (cooperative,
-    or on one thread; reps is ignored).  "miller": a (n, 2, 12) affine G1
-    and b (n, 2, 2, 12) affine G2 words -> the cooperative Miller loop's
-    values (reps is ignored)."""
+    cyclotomic subgroup), or the final exponentiation of a (reps is
+    ignored)."""
     if op not in PAIRING_OPS:
         raise ValueError(f"unknown pairing op {op!r}")
     n = a.shape[0]
-    if op == "miller":
-        check_tensor(a, "a", torch.int32, (n, 2, 12), a.device)
-        check_tensor(b, "b", torch.int32, (n, 2, 2, 12), a.device)
-    else:
-        check_tensor(a, "a", torch.int32, (n, 12, 12), a.device)
+    check_tensor(a, "a", torch.int32, (n, 12, 12), a.device)
     if op == "mul":
         check_tensor(b, "b", torch.int32, (n, 12, 12), a.device)
     return dispatch(__name__, "pairing_ops", "pairing", engine,
@@ -108,11 +99,8 @@ def _run_pairing_ops(library, op, a, b=None, reps=1):
 
 
 def pairing_ops_plain(op: str, a, b=None, reps=1):
-    if op == "miller":
-        return miller_plain(a, b, torch.ones(a.shape[0], dtype=torch.bool,
-                                             device=a.device))
     x = T.fq12_from_words(a)
-    if op.startswith("final_exp"):
+    if op == "final_exp":
         return T.fq12_to_words(PR.final_exponentiation(x))
     y = None if b is None else T.fq12_from_words(b)
     step = {"mul": lambda v: T.fq12_mul(v, y), "sqr": T.fq12_sqr,

@@ -4,12 +4,13 @@ pairing.cuh's cooperative Fq12 product, square, cyclotomic square, Miller
 loop and final exponentiation (the finish kernel's; one block of two
 warps per value on the card) build as host C++ in both Montgomery
 engines, each phase a loop over its lanes.  Word for word they must give
-the plain towers.py / pairing.py functions, the Miller loop the
-one-thread miller kernel, and the final exponentiation the reference's
-teku_tpu.ops.pairing.final_exponentiation.  finish must give the
-verdicts that the inputs were built to give (valid, one bad lane, an
-infinity signature sum, 1 row, odd row and lane counts), and gather_hm
-(one launch a call, in_range written by the kernel) the plain gather.
+the plain towers.py / pairing.py functions, the Miller loop (the miller
+kernel, a block per row) the plain miller, and the final exponentiation
+the reference's teku_tpu.ops.pairing.final_exponentiation.  finish must
+give the verdicts that the inputs were built to give (valid, one bad
+lane, an infinity signature sum, 1 row, odd row and lane counts), and
+gather_hm (one launch a call, in_range written by the kernel) the plain
+gather.
 """
 
 import jax
@@ -96,15 +97,13 @@ def test_coop_fq12_ops_match_towers(engine):
 
 @pytest.mark.parametrize("engine", ENGINES)
 def test_coop_final_exponentiation_matches_plain(engine):
-    """Random Fq12 values and a real Miller value: the cooperative and
-    the one-thread final exponentiation give the plain one's words."""
+    """Random Fq12 values and a real Miller value: the cooperative final
+    exponentiation gives the plain one's words."""
     a = torch.cat([random_fq12(2), fq12_words([miller_value()])])
     lib = host("pairing", engine)
     coop = KP._run_pairing_ops(lib, "final_exp", a)
     with K.plain_engine(engine):
         assert torch.equal(coop, KP.pairing_ops_plain("final_exp", a))
-    assert torch.equal(coop, KP._run_pairing_ops(lib, "final_exp_one_thread",
-                                                 a))
 
 
 def test_coop_final_exponentiation_matches_reference():
@@ -146,17 +145,18 @@ def g2_words(ks, jacobian) -> torch.Tensor:
 @pytest.mark.parametrize("engine", ENGINES)
 def test_finish_verdicts(engine):
     """e(a_i G1, b_i G2) over the rows against e(-G1, sum of the lanes):
-    True exactly when the lanes sum to sum a_i b_i G2.  The cooperative
-    Miller loop (pairing_ops miller) gives the one-thread miller's rows."""
+    True exactly when the lanes sum to sum a_i b_i G2.  The miller
+    kernel's cooperative Miller loop gives the plain miller's rows on
+    every batch (3, 1 and 2 rows), held in one plain call at the end."""
     lib = host("pairing", engine)
+    batches = []
 
     def verdict(pairs, lane_ks):
         agg = g1_affine_words([a for a, _ in pairs])
         hm = g2_words([b for _, b in pairs], jacobian=False)
         ml = KP._run_miller(lib, agg, hm,
                             torch.ones(len(pairs), dtype=torch.bool))
-        # finish's cooperative Miller loop on the same pairs, word for word
-        assert torch.equal(KP._run_pairing_ops(lib, "miller", agg, hm), ml)
+        batches.append((agg, hm, ml))
         wsig = g2_words(lane_ks, jacobian=True)
         got = KP._run_finish(lib, ml, wsig)
         return got, (ml, wsig)
@@ -182,6 +182,9 @@ def test_finish_verdicts(engine):
     inf_lanes = [c, R - c, None]
     assert verdict([(a, b), (R - a, b)], inf_lanes)[0].tolist() == [True]
     assert verdict([(a, b), (a, b)], inf_lanes)[0].tolist() == [False]
+    agg, hm, ml = (torch.cat(t) for t in zip(*batches))
+    assert torch.equal(ml, KP.miller_plain(
+        agg, hm, torch.ones(ml.shape[0], dtype=torch.bool)))
 
 
 def test_gather_hm_one_launch_no_fill(monkeypatch):
