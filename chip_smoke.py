@@ -102,11 +102,16 @@ Phases, each fatal on failure (exit code 1, no result line):
               final exponentiation on blocks) also against their plain
               versions there: A (8 rows), B (64), mesh A (2 a shard),
               mesh B (16), the legacy mesh (64, a row per lane), K6 and
-              K9 (32 lanes).
+              K9 (32 lanes).  h2c and prepare (a warp a row or lane,
+              wcoop.cuh) on both builds against their plain versions on
+              every group that ran them: A on its three scalars paths,
+              B, the mesh groups and the mxu-force groups (each distinct
+              input's plain version run once); fails if either ran on
+              no path.
 6. timing  -- each kernel at the main path's shapes (A's for the BLS
-              kernels, miller also at B's 64 rows, finish on both the
-              1-lane wsig of scalars_msm and the 256-lane wsig of
-              scalars_group; the mesh path's for
+              kernels, prepare, h2c and miller also at B's, finish on
+              both the 1-lane wsig of scalars_msm and the 256-lane wsig
+              of scalars_group; the mesh path's for
               gather_hm and shard_partials, the legacy path's for scalars
               and lane_affine, the parity phase's for aggregate_points,
               which nothing on the path calls; the KZG path's for the
@@ -120,7 +125,8 @@ Phases, each fatal on failure (exit code 1, no result line):
               finish, what its Miller loops, Fq12 product and final
               exponentiation execute beyond their least work: the fewer
               of the host build's and the plain version's products for
-              each (pairing_least_work); that of a KZG
+              each (pairing_least_work); in h2c and prepare the fewer of
+              the host build's and the plain version's; that of a KZG
               function and of lane_affine the least its real inputs need
               (kzg_least_work, lane_affine_least_work: one batched
               inversion where the kernel inverts per lane), with the
@@ -959,25 +965,43 @@ ENGINE_PARITY_GROUPS = ("A/auto", "A/pippenger", "B/auto", "mesh A/auto",
 # the kernels on pairing.cuh's cooperative routines that the engine parity
 # also holds against their plain versions on every path that runs them
 COOP_ROWS = ("miller", "kzg_fold")
+# the kernels on wcoop.cuh's warps (a warp a row or lane), held against
+# their plain versions on both builds on every verify group that ran them:
+# A on its three scalars paths, B, the mesh groups, mxu-force
+WARP_ROWS = ("h2c", "prepare")
+
+
+def input_key(name, args):
+    """A kernel call's inputs as a key: equal inputs, one plain run."""
+    import hashlib
+    digest = hashlib.sha256()
+    for a in args:
+        digest.update(repr((tuple(a.shape), a.dtype)).encode())
+        digest.update(a.cpu().numpy().tobytes())
+    return name, digest.hexdigest()
 
 
 def phase_engine_parity(recorder):
     """Every kernel on the mma build against the cios build, word for
     word, on the first inputs each group's main-path run gave it; miller
-    and kzg_fold on both builds against their plain versions too."""
+    and kzg_fold (on ENGINE_PARITY_GROUPS) and h2c and prepare (on every
+    group) on both builds against their plain versions too."""
     import torch
     kr, km, pr = kernel_runner(), kernel_runner(engine="mma"), plain_runner()
-    bad, held = [], set()
+    bad, held, plain_of = [], {}, {}
     for (group, name), args in sorted(recorder.args.items()):
-        if group not in ENGINE_PARITY_GROUPS:
+        if group not in ENGINE_PARITY_GROUPS and name not in WARP_ROWS:
             continue
         cios, mma = as_tuple(kr(name, *args)), as_tuple(km(name, *args))
         pairs = [("mma", "cios", mma, cios)]
-        if name in COOP_ROWS:
-            plain = as_tuple(pr(name, *args))
+        if name in COOP_ROWS + WARP_ROWS:
+            key = input_key(name, args)
+            if key not in plain_of:
+                plain_of[key] = as_tuple(pr(name, *args))
+            plain = plain_of[key]
             pairs += [("cios", "plain", cios, plain),
                       ("mma", "plain", mma, plain)]
-            held.add(name)
+            held.setdefault(name, []).append(group)
         errs = [(x, y, max(max_err(a, b) for a, b in zip(u, v)))
                 for x, y, u, v in pairs]
         torch.cuda.synchronize()
@@ -989,8 +1013,13 @@ def phase_engine_parity(recorder):
     if bad:
         fail(f"the mma build, the cios build and the plain version "
              f"disagree on {bad}")
-    if held != set(COOP_ROWS):
-        fail(f"{sorted(set(COOP_ROWS) - held)} ran on no path")
+    for name in WARP_ROWS:
+        inputs = sum(k[0] == name for k in plain_of)
+        log(f"[engines] {name} held against its plain version on both "
+            f"builds on {held.get(name, [])} ({inputs} distinct inputs)")
+    missing = sorted(set(COOP_ROWS + WARP_ROWS) - set(held))
+    if missing:
+        fail(f"{missing} ran on no path")
 
 
 def lane_rows(plan):
@@ -1788,11 +1817,13 @@ def nbytes(xs) -> int:
 
 
 # (kernel, group whose first call it is timed on): workload A's shapes
-# (miller also at B's 64 rows; finish on both wsig widths: 1 lane from
+# (prepare, h2c and miller also at B's: 64 lanes of 128 keys, 64 rows;
+# finish on both wsig widths: 1 lane from
 # scalars_msm, 256 from scalars_group) and the KZG path's (eval on the
 # padded 6-blob batch, the fold's 32 lanes, the msm's 4096, validation of
 # its 16-lane miss bucket)
 TIMED = [("g1_validate", "A/auto"), ("prepare", "A/auto"), ("h2c", "A/auto"),
+         ("prepare", "B/auto"), ("h2c", "B/auto"),
          ("scalars_group", "A/auto"), ("scalars_msm", "A/pippenger"),
          ("miller", "A/auto"), ("miller", "B/auto"), ("finish", "A/auto"),
          ("finish", "A/pippenger"), ("gather_hm", "mesh A/auto"),
@@ -2020,6 +2051,10 @@ def phase_timing(recorder, launches, dev, regimes):
             fq -= extra["miller"] + extra["mul"] + extra["final_exp"]
         elif name == "lane_affine":
             fq, fr = lane_affine_least_work(args[0]), 0
+        elif name in WARP_ROWS:
+            # the fewer of the warp build's products and the plain
+            # version's (the reference's formulas)
+            fq = min(fq, plain_products(lambda: pr(name, *args)))
         elif group == "kzg":
             # g1_validate: the same work on every lane; the bucket's
             # padding lanes (x = 0) are not the path's points

@@ -118,7 +118,10 @@ def constants_header() -> str:
     fpc("K_NEG_G1_Y", neg_g1[1])
     expc("E_PM2", P - 2)
     expc("E_SQRT1", (P + 1) // 4)
-    expc("E_SQRT2", SQRT_EXP)
+    # the Fq2 square-root exponent's halves in base P (wcoop.cuh:
+    # a^e = conj(a^HI) a^LO)
+    expc("E_SQRT2_LO", SQRT_EXP % P)
+    expc("E_SQRT2_HI", SQRT_EXP // P)
     expc("E_XABS", X_ABS)
     expc("E_XSQ", X_ABS * X_ABS)
     return "\n".join(lines) + "\n"

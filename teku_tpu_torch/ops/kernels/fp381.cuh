@@ -10,7 +10,8 @@
 // a CIOS loop of 12 rows, each row four mad.lo.cc / madc.hi.cc carry chains
 // of 12 (operand row lo and hi, reduction row lo and hi): 576 multiply-adds,
 // about 2 * 12^2 32 x 32 -> 64-bit products.  The kernels run one thread
-// per lane or row; the tower and curve functions are __noinline__ so nvcc
+// per lane or row (the cooperative ones, pairing.cuh and wcoop.cuh, a block
+// or a warp); the tower and curve functions are __noinline__ so nvcc
 // does not inline a whole Miller loop into one body (compile time and
 // register spills), and every element crosses a call in local memory.
 //
@@ -384,6 +385,19 @@ DEVNI fq2 fq2_mul(const fq2& a, const fq2& b) {
     return fq2_make(fp_sub(t0, t1), fp_sub(fp_sub(t2, t0), t1));
 }
 
+// Karatsuba's three Fq products of an Fq2 product x y (fq2_mul): s = 0
+// x0 y0, s = 1 x1 y1, s = 2 (x0 + x1)(y0 + y1); kara_join combines them
+// (the cooperative routines of pairing.cuh and wcoop.cuh run them on
+// separate lanes)
+DEV fp kara_part(const fq2& x, int s) {
+    fp sum = fp_add(x.c0, x.c1);
+    return s == 0 ? x.c0 : s == 1 ? x.c1 : sum;
+}
+
+DEV fq2 kara_join(const fp* p) {
+    return fq2_make(fp_sub(p[0], p[1]), fp_sub(fp_sub(p[2], p[0]), p[1]));
+}
+
 DEVNI fq2 fq2_sqr(const fq2& a) {
     fp t0 = fp_mul(fp_add(a.c0, a.c1), fp_sub(a.c0, a.c1));
     fp t1 = fp_mul(a.c0, a.c1);
@@ -399,47 +413,10 @@ template <bool EUCLID = false> DEVNI fq2 fq2_inv(const fq2& a) {
     return fq2_make(fp_mul(a.c0, ninv), fp_neg(fp_mul(a.c1, ninv)));
 }
 
-DEVNI fq2 fq2_pow(const fq2& a, const uint32_t* e, int nbits) {
-    fq2 r = fq2_one();
-    for (int i = nbits - 1; i >= 0; i--) {
-        r = fq2_sqr(r);
-        if ((e[i >> 5] >> (i & 31)) & 1) r = fq2_mul(r, a);
-    }
-    return r;
-}
-
-// Square root in Fq2 (q = 9 mod 16): the candidate a^((q+7)/16) times
-// each of 1, sqrt(-1), sqrt(sqrt(-1)), sqrt(-sqrt(-1)); the first whose
-// square is a wins (the reference's order).  ok = false: not a square.
-DEVNI fq2 fq2_sqrt(const fq2& a, bool* ok) {
-    fq2 cand = fq2_pow(a, E_SQRT2, E_SQRT2_BITS);
-    fq2 root = cand;
-    bool found = false;
-    for (int i = 0; i < 4; i++) {
-        fq2 c = i == 0 ? cand : fq2_mul(K_SQRT_ROOTS[i - 1], cand);
-        bool m = (EVERY_LANE || !found) && fq2_eq(fq2_sqr(c), a) && !found;
-        if (m) root = c;
-        found = found || m;
-    }
-    *ok = found;
-    return root;
-}
-
 // wire sign of a canonical plain Fq2 y: lexicographically larger root
 DEV bool fq2_is_large_plain(const fq2& y) {
     bool large1 = plain_gt(y.c1, K_HALF);
     return large1 || (fp_is_zero(y.c1) && plain_gt(y.c0, K_HALF));
-}
-
-DEV fq2 fq2_from_mont(const fq2& a) { return fq2_make(fp_from_mont(a.c0), fp_from_mont(a.c1)); }
-
-// RFC 9380 sgn0 of a Montgomery-form element
-DEV uint32_t fq2_sgn0(const fq2& a) {
-    fq2 p = fq2_from_mont(a);
-    uint32_t a0_odd = p.c0.v[0] & 1;
-    uint32_t a0_zero = fp_is_zero(p.c0) ? 1 : 0;
-    uint32_t a1_odd = p.c1.v[0] & 1;
-    return a0_odd | (a0_zero & a1_odd);
 }
 
 DEV fq2 fq2_load(const int32_t* w) { return fq2_make(fp_load(w), fp_load(w + 12)); }
@@ -703,12 +680,6 @@ DEVNI bool g1_in_subgroup(const g1p& p) {
     return pt_eq(g1_phi(p), rhs) || pt_is_inf(p);
 }
 
-// psi(Q) == [z]Q, z < 0
-DEVNI bool g2_in_subgroup(const g2p& q) {
-    g2p rhs = pt_neg(pt_mul_static(q, E_XABS, E_XABS_BITS));
-    return pt_eq(g2_psi(q), rhs) || pt_is_inf(q);
-}
-
 // G1 decompression from a canonical plain x: (x, y, 1), ok = on curve
 DEVNI g1p g1_recover_y(const fp& x_plain, bool large_flag, bool* ok) {
     g1p r;
@@ -719,17 +690,6 @@ DEVNI g1p g1_recover_y(const fp& x_plain, bool large_flag, bool* ok) {
     bool large = plain_gt(fp_from_mont(y), K_HALF);
     r.y = (large == large_flag) ? y : fp_neg(y);
     r.z = K_ONE;
-    return r;
-}
-
-DEVNI g2p g2_recover_y(const fq2& x_plain, bool large_flag, bool* ok) {
-    g2p r;
-    r.x = fq2_make(fp_to_mont(x_plain.c0), fp_to_mont(x_plain.c1));
-    fq2 rhs = fq2_add(fq2_mul(fq2_sqr(r.x), r.x), K_B2);
-    fq2 y = fq2_sqrt(rhs, ok);
-    bool large = fq2_is_large_plain(fq2_from_mont(y));
-    r.y = (large == large_flag) ? y : fq2_neg(y);
-    r.z = fq2_one();
     return r;
 }
 

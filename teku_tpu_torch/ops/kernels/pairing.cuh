@@ -145,17 +145,6 @@ DEV fq2* fq12_at(fq12* a, int k) { return (fq2*)a + k; }
 // coefficient of w^i (w^2 = v): c0.c0, c1.c0, c0.c1, c1.c1, c0.c2, c1.c2
 DEV fq2* fq12_w(fq12* a, int i) { return (fq2*)a + ((i & 1) ? 3 + (i >> 1) : (i >> 1)); }
 
-// Karatsuba's three Fq products of an Fq2 product x y (fq2_mul): s = 0
-// x0 y0, s = 1 x1 y1, s = 2 (x0 + x1)(y0 + y1); kara_join combines them
-DEV fp kara_part(const fq2& x, int s) {
-    fp sum = fp_add(x.c0, x.c1);
-    return s == 0 ? x.c0 : s == 1 ? x.c1 : sum;
-}
-
-DEV fq2 kara_join(const fp* p) {
-    return fq2_make(fp_sub(p[0], p[1]), fp_sub(fp_sub(p[2], p[0]), p[1]));
-}
-
 // jobs q < n (n <= 7): *o[q] = *a[q] * *b[q], one Fq product a lane
 DEVNI void coop_round(coop_t* S, int n, fq2* const* a, fq2* const* b, fq2* const* o) {
     fp* part = (fp*)(S->r + R_PARTS);
